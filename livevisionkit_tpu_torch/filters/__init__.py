@@ -1,0 +1,1 @@
+"""filters layer of the PyTorch port (counterpart of livevisionkit_tpu/filters)."""

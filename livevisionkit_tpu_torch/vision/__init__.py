@@ -1,0 +1,1 @@
+"""vision layer of the PyTorch port (counterpart of livevisionkit_tpu/vision)."""
