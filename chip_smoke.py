@@ -3,14 +3,17 @@
     python3 chip_smoke.py [--profile DIR]
 
 Builds the hand-written kernels from csrc/, holds each against its plain
-PyTorch version on the card at the flagship shapes, then drives the
-flagship 1080p stabilizer (`livevisionkit_tpu_torch.flagship_filter`) over a
-60-frame synthetic shaky clip rendered on the card, and checks that the
-step went through both kernels once per frame and stabilized the clip.
-Every failure raises.  The last line is a JSON object with the device; the
-line before it lists each kernel's launches, error and times.  With no CUDA
-device it exits non-zero and prints no result.  `--profile DIR` also writes
-a torch.profiler table of five steady steps to DIR.
+PyTorch version on the card at the shapes of the main paths, then drives
+two paths over 60-frame synthetic shaky 1080p clips rendered on the card:
+the flagship stabilizer (`livevisionkit_tpu_torch.flagship_filter`) alone,
+and the chain stabilizer -> FSR scaler to 4K (`CompositeFilter` of it and
+`ScalingFilter`), checking that each step went through its kernels once
+per frame and that the outputs are right.  It also times the scaler alone
+at 1080p -> 4K.  Every failure raises.  The last line is a JSON object
+with the device; the line before it lists each kernel's launches, error
+and times.  With no CUDA device it exits non-zero and prints no result.
+`--profile DIR` also writes torch.profiler tables of five steady steps of
+each path to DIR.
 """
 
 from __future__ import annotations
@@ -28,6 +31,10 @@ import numpy as np
 import torch
 
 H, W = 1080, 1920
+OUT = (2160, 3840)  # the chain's 4K output
+# K5 cases: the chain's 2x, the reference scaler's default output from 720p
+# (a 3/2 ratio, config.py's ScalingFilterSettings) and one fallback ratio.
+SCALE_CASES = (((H, W), OUT), ((720, 1280), (H, W)), ((H, W), (1600, 2844)))
 N_FRAMES, N_TIMED = 60, 40
 RUNS = 20
 
@@ -80,6 +87,58 @@ def _similarity(scale, angle, tx, ty, dev):
 
     f = lambda v: torch.tensor(float(v), dtype=torch.float32, device=dev)  # noqa: E731
     return Homography.from_similarity(f(scale), f(angle), f(tx), f(ty))
+
+
+def _kernel_modules():
+    from livevisionkit_tpu_torch.ops.cuda_kernels import easu_scale, lk, rcas, warp
+
+    return {"warp": warp.warp, "lk_track": lk.lk_track, "easu_scale": easu_scale.easu_scale,
+            "rcas": rcas.rcas}
+
+
+def _reset_launches() -> None:
+    for fn in _kernel_modules().values():
+        fn.launches = 0
+
+
+def _launches() -> dict:
+    return {name: fn.launches for name, fn in _kernel_modules().items()}
+
+
+def _shaky_clip(dev, rng):
+    """60 frames of a 1080p YUV shaky camera path over a texture larger
+    than the frame: slow drift + per-frame jitter (px, rad).  Returns the
+    frame -> texture poses and the frames."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.ops import remap as remap_ops
+
+    tex = torch.from_numpy(_texture(H + 320, W + 320, rng)).to(dev)[None].contiguous()
+    n = N_FRAMES
+    tx = 100.0 + 1.0 * np.arange(n) + rng.uniform(-6.0, 6.0, n)
+    ty = 100.0 + 0.5 * np.arange(n) + rng.uniform(-6.0, 6.0, n)
+    ang = rng.uniform(-0.003, 0.003, n)
+    poses = [_similarity(1.0, ang[t], tx[t], ty[t], dev) for t in range(n)]
+    frames = []
+    for t, p in enumerate(poses):
+        y = remap_ops.remap(tex, p.sample_map((H, W), inverse=False), fill=0.5, filter_mode="bilinear")
+        px = torch.cat([y, torch.full((2, H, W), 0.5, device=dev)]).contiguous()
+        frames.append(lvk.Frame.create(px, timestamp=t / 30.0, fmt=lvk.PixelFormat.YUV))
+    torch.cuda.synchronize()
+    return poses, frames
+
+
+def _profile(step, state, frames, path: str) -> None:
+    """torch.profiler table and trace of five steady steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fr in frames[:5]:
+            state, _ = step(state, fr)
+        torch.cuda.synchronize()
+    with open(path + "_profile.txt", "w") as fh:
+        fh.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+    prof.export_chrome_trace(path + "_trace.json")
 
 
 def check_warp(dev, rng) -> dict:
@@ -155,67 +214,116 @@ def check_lk(dev, rng) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def check_easu_scale(dev, rng) -> dict:
+    """K5 against its plain version on SCALE_CASES, f32 YUV: the chain's
+    1080p -> 4K (2x, the TPU kernel's case), the reference scaler's default
+    720p -> 1080p (3/2) and one fallback ratio (1080p -> 1600x2844)."""
+    from livevisionkit_tpu_torch.ops import easu as easu_ops
+    from livevisionkit_tpu_torch.types import PixelFormat
+
+    report = {}
+    for (h, w), size in SCALE_CASES:
+        luma = torch.from_numpy(_texture(h, w, rng)).to(dev)
+        img = torch.stack([luma, 0.25 + 0.5 * luma.flip(0), 0.75 - 0.5 * luma.flip(1)]).contiguous()
+        plan = easu_ops.scale_plan((h, w), size)
+        got = easu_ops.easu_scale(img, size, PixelFormat.YUV)
+        want = easu_ops.easu_scale_plain(img, size, PixelFormat.YUV)
+        assert got.shape == want.shape == (3, *size)
+        err = float((got - want).abs().max())
+        del got, want
+        assert err <= 1e-5, f"easu_scale {h}x{w} -> {size} differs from plain by {err} > 1e-5"
+        ms = _median_ms(lambda: easu_ops.easu_scale(img, size, PixelFormat.YUV))
+        plain_ms = _median_ms(lambda: easu_ops.easu_scale_plain(img, size, PixelFormat.YUV))
+        form = "rational" if plan.rational else "fallback"
+        print(f"K5 easu_scale 3x{h}x{w} -> {size[0]}x{size[1]} ({form} {plan.py}/{plan.qy}, "
+              f"{plan.px}/{plan.qx}): max|err| {err:.3e}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (f32, median of {RUNS})", flush=True)
+        report[size] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return report
+
+
+def check_rcas(dev, rng) -> dict:
+    """K6 against its plain version on the chain's 3x2160x3840 f32 frame
+    (a 4K EASU upscale of a texture) at sharpness 0.8."""
+    from livevisionkit_tpu_torch.ops import easu as easu_ops
+    from livevisionkit_tpu_torch.ops import rcas as rcas_ops
+
+    luma = torch.from_numpy(_texture(H, W, rng)).to(dev)
+    small = torch.stack([luma, 0.25 + 0.5 * luma.flip(0), 0.75 - 0.5 * luma.flip(1)]).contiguous()
+    img = easu_ops.easu_scale_plain(small, OUT).contiguous()
+    got = rcas_ops.rcas(img, 0.8)
+    want = rcas_ops.rcas_plain(img, 0.8)
+    err = float((got - want).abs().max())
+    moved = float((got - img).abs().max())
+    del got, want
+    assert err <= 1e-6, f"rcas differs from plain by {err} > 1e-6"
+    assert moved > 1e-3, f"rcas changed no pixel by more than {moved}"
+    ms = _median_ms(lambda: rcas_ops.rcas(img, 0.8))
+    plain_ms = _median_ms(lambda: rcas_ops.rcas_plain(img, 0.8))
+    print(f"K6 rcas 3x{OUT[0]}x{OUT[1]}: max|err| {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"(f32, sharpness 0.8, median of {RUNS})", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def _drive(filt, state, frames, per_frame):
+    """Step `filt` over `frames` with synchronizing calls made errors; return
+    the state, device ms/frame (CUDA events) and host ms/frame over the
+    last N_TIMED frames.  `per_frame(t, state, out)` keeps what is checked."""
+    n = len(frames)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    wall0 = 0.0
+    # The step must never wait for the device (that is what lets it be
+    # captured in a CUDA graph): any synchronizing call in it raises here.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t, fr in enumerate(frames):
+            if t == n - N_TIMED:
+                start.record()
+                wall0 = time.perf_counter()
+            state, out = filt.step(state, fr)
+            per_frame(t, state, out)
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - wall0) * 1e3 / N_TIMED
+    return state, start.elapsed_time(end) / N_TIMED, wall_ms
+
+
 def run_slice(dev, rng, profile_dir: str | None) -> dict:
-    """60 flagship 1080p frames through the port on the card."""
+    """60 flagship 1080p frames through the stabilizer on the card."""
     import livevisionkit_tpu_torch as lvk
-    from livevisionkit_tpu_torch.ops import remap as remap_ops
-    from livevisionkit_tpu_torch.ops.cuda_kernels import lk as lk_kernel
-    from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
     from livevisionkit_tpu_torch.utils import metrics
 
-    # Shaky camera path: slow drift + per-frame jitter (px, rad), frame ->
-    # texture poses over a texture larger than the frame.
-    tex = torch.from_numpy(_texture(H + 320, W + 320, rng)).to(dev)[None].contiguous()
-    n = N_FRAMES
-    tx = 100.0 + 1.0 * np.arange(n) + rng.uniform(-6.0, 6.0, n)
-    ty = 100.0 + 0.5 * np.arange(n) + rng.uniform(-6.0, 6.0, n)
-    ang = rng.uniform(-0.003, 0.003, n)
-    poses = [_similarity(1.0, ang[t], tx[t], ty[t], dev) for t in range(n)]
-    clip = []
-    for p in poses:
-        y = remap_ops.remap(tex, p.sample_map((H, W), inverse=False), fill=0.5, filter_mode="bilinear")
-        clip.append(torch.cat([y, torch.full((2, H, W), 0.5, device=dev)]).contiguous())
-    torch.cuda.synchronize()
-
+    poses, frames = _shaky_clip(dev, rng)
+    n = len(frames)
     filt = lvk.flagship_filter()
     delay = filt.delay  # output lag in frames (the predictive window)
     spec = lvk.FrameSpec(H, W, 3, lvk.PixelFormat.YUV)
-    frames = [lvk.Frame.create(c, timestamp=t / 30.0, fmt=lvk.PixelFormat.YUV) for t, c in enumerate(clip)]
     # One step on a throwaway state fills the per-shape caches (the resize
     # weights), so the measured run below meets no first-use work.
     filt.step(filt.init(spec, device=dev), frames[0])
     state = filt.init(spec, device=dev)
     torch.cuda.synchronize()
 
-    warp_kernel.warp.launches = 0
-    lk_kernel.lk_track.launches = 0
     # Per frame, only 0-d flags and the 2x2 correction are kept: holding
     # every 1080p output would make the allocator take fresh device memory
     # each step, which a streaming consumer never pays.
     valids, finite, corrections, stabilities = [], [], [], []
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    wall0 = 0.0
-    # The step must never wait for the device (that is what lets it be
-    # captured in a CUDA graph): any synchronizing call in it raises here.
-    torch.cuda.set_sync_debug_mode("error")
-    for t, fr in enumerate(frames):
-        if t == n - N_TIMED:
-            start.record()
-            wall0 = time.perf_counter()
-        state, out = filt.step(state, fr)
+
+    def keep(t, st, out):
         assert out.pixels.shape == (3, H, W)
         valids.append(out.valid)
         finite.append(torch.isfinite(out.pixels).all())
-        corrections.append(state.correction)
-        stabilities.append(state.stability)
-    end.record()
-    torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - wall0) * 1e3 / N_TIMED
-    launches = {"warp": warp_kernel.warp.launches, "lk_track": lk_kernel.lk_track.launches}
-    gpu_ms = start.elapsed_time(end) / N_TIMED
+        corrections.append(st.correction)
+        stabilities.append(st.stability)
 
-    assert launches == {"warp": n, "lk_track": n}, f"kernel launches {launches}, want {n} each"
+    _reset_launches()
+    state, gpu_ms, wall_ms = _drive(filt, state, frames, keep)
+    launches = _launches()
+
+    want = {"warp": n, "lk_track": n, "easu_scale": 0, "rcas": 0}
+    assert launches == want, f"kernel launches {launches}, want {want}"
     valid = [bool(v) for v in valids]
     assert valid == [t >= delay for t in range(n)], f"valid flags {valid}"
     bad = [t for t, f in enumerate(finite) if not bool(f)]
@@ -240,21 +348,70 @@ def run_slice(dev, rng, profile_dir: str | None) -> dict:
           flush=True)
     print(f"slice: {gpu_ms:.4f} ms/frame on the device (CUDA events over the last {N_TIMED} "
           f"frames), {wall_ms:.4f} ms/frame host wall clock", flush=True)
-
     if profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-
-        os.makedirs(profile_dir, exist_ok=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for fr in frames[:5]:
-                state, out = filt.step(state, fr)
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        with open(os.path.join(profile_dir, "slice_profile.txt"), "w") as fh:
-            fh.write(table)
-        prof.export_chrome_trace(os.path.join(profile_dir, "slice_trace.json"))
+        _profile(filt.step, state, frames, os.path.join(profile_dir, "slice"))
     return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms,
             "jitter_in": j_in, "jitter_out": j_out}
+
+
+def run_chain(dev, rng, profile_dir: str | None) -> dict:
+    """60 1080p frames through the flagship stabilizer and the FSR scaler
+    to 4K at sharpness 0.8 (the CLI's `vs,fsr.size=3840x2160` chain), then
+    the scaler alone on the same frames."""
+    import livevisionkit_tpu_torch as lvk
+
+    out_size = OUT
+    _, frames = _shaky_clip(dev, rng)
+    n = len(frames)
+    scaler = lvk.ScalingFilter(lvk.ScalingFilterSettings(output_size=out_size, sharpness=0.8))
+    chain = lvk.CompositeFilter((lvk.flagship_filter(), scaler))
+    delay = chain.delay
+    spec = lvk.FrameSpec(H, W, 3, lvk.PixelFormat.YUV)
+    assert chain.output_spec(spec).height == out_size[0]
+    chain.step(chain.init(spec, device=dev), frames[0])
+    state = chain.init(spec, device=dev)
+    torch.cuda.synchronize()
+
+    # Per frame only 0-d flags and extrema are kept (no 4K output outlives
+    # its step).
+    valids, finite, lo, hi = [], [], [], []
+
+    def keep(t, st, out):
+        assert out.pixels.shape == (3, *out_size), tuple(out.pixels.shape)
+        valids.append(out.valid)
+        finite.append(torch.isfinite(out.pixels).all())
+        lo.append(out.pixels.amin())
+        hi.append(out.pixels.amax())
+
+    _reset_launches()
+    state, gpu_ms, wall_ms = _drive(chain, state, frames, keep)
+    launches = _launches()
+
+    want = {"warp": n, "lk_track": n, "easu_scale": n, "rcas": n}
+    assert launches == want, f"kernel launches {launches}, want {want}"
+    valid = [bool(v) for v in valids]
+    assert valid == [t >= delay for t in range(n)], f"valid flags {valid}"
+    bad = [t for t, f in enumerate(finite) if not bool(f)]
+    assert not bad, f"non-finite output pixels in frames {bad}"
+    lo_all, hi_all = min(float(v) for v in lo), max(float(v) for v in hi)
+    # EASU de-rings into its 4 nearest taps and RCAS's limiter keeps [0, 1]
+    # input inside [0, 1].
+    assert -1e-5 <= lo_all and hi_all <= 1.0 + 1e-5, f"outputs span [{lo_all}, {hi_all}]"
+    print(f"chain: {n} frames 1080p -> stabilizer -> EASU 4K + RCAS 0.8, valid from frame "
+          f"{delay}, outputs in [{lo_all:.6f}, {hi_all:.6f}], launches {launches}", flush=True)
+    print(f"chain: {gpu_ms:.4f} ms/frame on the device (CUDA events over the last {N_TIMED} "
+          f"frames), {wall_ms:.4f} ms/frame host wall clock", flush=True)
+    if profile_dir:
+        _profile(chain.step, state, frames, os.path.join(profile_dir, "chain"))
+
+    _reset_launches()
+    _, sc_gpu_ms, sc_wall_ms = _drive(scaler, (), frames, lambda t, st, out: None)
+    sc_launches = _launches()
+    assert sc_launches == {"warp": 0, "lk_track": 0, "easu_scale": n, "rcas": n}, sc_launches
+    print(f"scaler alone: 1080p -> 4K EASU + RCAS 0.8, {sc_gpu_ms:.4f} ms/frame on the device, "
+          f"{sc_wall_ms:.4f} ms/frame host wall clock (last {N_TIMED} of {n} frames)", flush=True)
+    return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms,
+            "scaler_gpu_ms": sc_gpu_ms, "scaler_wall_ms": sc_wall_ms}
 
 
 def main() -> int:
@@ -280,7 +437,10 @@ def main() -> int:
     rng = np.random.default_rng(0)
     warp_rep = check_warp(dev, rng)
     lk_rep = check_lk(dev, rng)
+    easu_rep = check_easu_scale(dev, rng)
+    rcas_rep = check_rcas(dev, rng)
     sl = run_slice(dev, rng, args.profile)
+    ch = run_chain(dev, rng, args.profile)
 
     kernels = [
         {"name": "warp", "route": "cuda", "source": "livevisionkit_tpu_torch/csrc/warp.cu",
@@ -291,10 +451,20 @@ def main() -> int:
          "replaces": "livevisionkit_tpu/ops/tpu_kernels/lk.py:255",
          "launches": sl["launches"]["lk_track"], "max_abs_err": lk_rep["max_abs_err"],
          "ms": lk_rep["ms"], "plain_ms": lk_rep["plain_ms"]},
+        {"name": "easu_scale", "route": "cuda", "source": "livevisionkit_tpu_torch/csrc/easu_scale.cu",
+         "replaces": "livevisionkit_tpu/ops/tpu_kernels/easu_scale.py:264",
+         "launches": ch["launches"]["easu_scale"],
+         "max_abs_err": max(r["max_abs_err"] for r in easu_rep.values()),
+         "ms": easu_rep[OUT]["ms"], "plain_ms": easu_rep[OUT]["plain_ms"]},
+        {"name": "rcas", "route": "cuda", "source": "livevisionkit_tpu_torch/csrc/rcas.cu",
+         "replaces": "livevisionkit_tpu/ops/tpu_kernels/rcas.py:108",
+         "launches": ch["launches"]["rcas"], "max_abs_err": rcas_rep["max_abs_err"],
+         "ms": rcas_rep["ms"], "plain_ms": rcas_rep["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(f"{gpu} | slice {sl['gpu_ms']:.4f} ms/frame (device), {sl['wall_ms']:.4f} ms/frame (host)",
-          flush=True)
+    print(f"{gpu} | slice {sl['gpu_ms']:.4f} ms/frame (device), {sl['wall_ms']:.4f} ms/frame (host)"
+          f" | chain {ch['gpu_ms']:.4f} / {ch['wall_ms']:.4f} | scaler alone "
+          f"{ch['scaler_gpu_ms']:.4f} / {ch['scaler_wall_ms']:.4f}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

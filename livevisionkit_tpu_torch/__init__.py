@@ -1,4 +1,5 @@
-"""LiveVisionKit on PyTorch + CUDA: the flagship stabilizer for one NVIDIA H100.
+"""LiveVisionKit on PyTorch + CUDA for one NVIDIA H100: the flagship
+stabilizer and the FSR scaler (EASU upscale + RCAS sharpen).
 
 A port of ``livevisionkit_tpu`` (the JAX reference, which stays beside it):
 plain tensor code is PyTorch, and the hot kernels are hand-written CUDA C++
@@ -25,10 +26,17 @@ from livevisionkit_tpu_torch.config import (  # noqa: E402
     MotionEstimationSettings,
     OpticalFlowSettings,
     PathSmootherSettings,
+    ScalingFilterSettings,
     StabilizationFilterSettings,
 )
 from livevisionkit_tpu_torch.data.frame import Frame  # noqa: E402
-from livevisionkit_tpu_torch.filters.base import FrameSpec, VideoFilter  # noqa: E402
+from livevisionkit_tpu_torch.filters.base import (  # noqa: E402
+    CompositeFilter,
+    FrameSpec,
+    IdentityFilter,
+    VideoFilter,
+)
+from livevisionkit_tpu_torch.filters.scaling import ScalingFilter  # noqa: E402
 from livevisionkit_tpu_torch.filters.stabilization import (  # noqa: E402
     StabilizationFilter,
     flagship_filter,
@@ -44,7 +52,10 @@ __all__ = [
     "WarpField",
     "FrameSpec",
     "VideoFilter",
+    "IdentityFilter",
+    "CompositeFilter",
     "StabilizationFilter",
+    "ScalingFilter",
     "flagship_filter",
     "FeatureDetectorSettings",
     "OpticalFlowSettings",
@@ -52,5 +63,6 @@ __all__ = [
     "FrameTrackerSettings",
     "PathSmootherSettings",
     "StabilizationFilterSettings",
+    "ScalingFilterSettings",
     "__version__",
 ]

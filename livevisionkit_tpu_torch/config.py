@@ -156,7 +156,8 @@ class CASFilterSettings:
 
 @dataclass(frozen=True)
 class ScalingFilterSettings:
-    """FSR upscale + RCAS sharpen (not yet ported)."""
+    """FSR upscale + RCAS sharpen (reference ScalingFilter.hpp:26-31).
+    output_size=None keeps the input size (RCAS-only sharpening)."""
 
     output_size: tuple[int, int] | None = (1080, 1920)
     sharpness: float = 0.8

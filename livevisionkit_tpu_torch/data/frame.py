@@ -68,6 +68,14 @@ class Frame:
     def replace(self, **changes) -> "Frame":
         return dataclasses.replace(self, **changes)
 
+    def with_pixels(self, pixels: torch.Tensor, fmt: PixelFormat | None = None) -> "Frame":
+        """Metadata-preserving pixel replacement (reference VideoFrame
+        clone/copyTo semantics, Data/VideoFrame.cpp:78-120); shape-changing
+        filters (ScalingFilter) use it.  The JAX package also resamples a
+        carried alpha plane here (livevisionkit_tpu/data/frame.py:106-119);
+        that waits for the port's alpha slice, since no alpha is carried."""
+        return self.replace(pixels=pixels, format=self.format if fmt is None else fmt)
+
     def luma(self) -> torch.Tensor:
         """(H, W) luminance plane — the tracking input.  GRAY/YUV take plane
         0 directly (the reference's zero-copy viewAsFormat)."""

@@ -10,6 +10,8 @@ The reference's "empty output" protocol is the Frame's 0-d bool `valid`:
 shapes never change, a filter whose output is not ready emits
 valid=False, and temporal state must not be corrupted by invalid frames —
 `where_state` gates it without reading the flag back to the host.
+`CompositeFilter` chains filters; the JAX package's `pool_form` rewrite of
+a mid-chain deblocker is an XLA relayout workaround and is not ported.
 """
 
 from __future__ import annotations
@@ -73,7 +75,58 @@ class VideoFilter:
         """
         raise NotImplementedError
 
+    def output_spec(self, spec: FrameSpec) -> FrameSpec:
+        """Spec of output frames (scaling/conversion filters override)."""
+        return spec
+
     @property
     def delay(self) -> int:
         """Output latency in frames (0 unless the filter buffers)."""
         return 0
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+
+class IdentityFilter(VideoFilter):
+    """Pass-through (reference IdentityFilter, VideoFilter.hpp:62-64)."""
+
+    def step(self, state: Any, frame: Frame, *, drain: bool | torch.Tensor = False) -> tuple[Any, Frame]:
+        return state, frame
+
+
+@dataclass(frozen=True)
+class CompositeFilter(VideoFilter):
+    """Sequential chain (reference CompositeFilter.cpp:60-88).  The state is
+    the tuple of the stages' states; `drain` reaches every stage, and an
+    upstream warm-up reaches downstream stages as valid=False frames."""
+
+    filters: tuple[VideoFilter, ...]
+
+    def init(self, spec: FrameSpec, device: torch.device | str = "cpu") -> tuple:
+        states = []
+        for f in self.filters:
+            states.append(f.init(spec, device=device))
+            spec = f.output_spec(spec)
+        return tuple(states)
+
+    def step(self, state: tuple, frame: Frame, *, drain: bool | torch.Tensor = False) -> tuple[tuple, Frame]:
+        new_states = []
+        for f, s in zip(self.filters, state):
+            s, frame = f.step(s, frame, drain=drain)
+            new_states.append(s)
+        return tuple(new_states), frame
+
+    def output_spec(self, spec: FrameSpec) -> FrameSpec:
+        for f in self.filters:
+            spec = f.output_spec(spec)
+        return spec
+
+    @property
+    def delay(self) -> int:
+        return sum(f.delay for f in self.filters)
+
+    @property
+    def name(self) -> str:
+        return "+".join(f.name for f in self.filters)

@@ -1,4 +1,5 @@
-"""Carry a running stabilizer's state from the JAX package into the port.
+"""Carry a running stabilizer's (or filter chain's) state from the JAX
+package into the port.
 
 The engine has no weights: its state (pyramid, features, detector
 thresholds, smoother window, delay queue, trust and scene quality) is what
@@ -16,7 +17,8 @@ import torch
 
 from livevisionkit_tpu_torch.config import StabilizationFilterSettings
 from livevisionkit_tpu_torch.data.stream_buffer import StreamBuffer
-from livevisionkit_tpu_torch.filters.stabilization import StabilizerState
+from livevisionkit_tpu_torch.filters.base import VideoFilter
+from livevisionkit_tpu_torch.filters.stabilization import StabilizationFilter, StabilizerState
 from livevisionkit_tpu_torch.models.warp_field import WarpField
 from livevisionkit_tpu_torch.vision import frame_tracker, path_smoother
 from livevisionkit_tpu_torch.vision.features import FeatureGrid
@@ -93,3 +95,23 @@ def stabilizer_state_from_numpy(
         uniformity=_t(tree.uniformity, device, torch.float32),
         correction=WarpField(offsets=_t(tree.correction.offsets, device, torch.float32)),
     )
+
+
+def composite_state_from_numpy(
+    tree, filters: tuple[VideoFilter, ...], device: torch.device | str, seed: int = 0
+) -> tuple:
+    """The port's CompositeFilter state equal to a JAX chain's, given as
+    numpy leaves, for the port's `filters` (a CompositeFilter's `.filters`):
+    a stabilizer stage goes through `stabilizer_state_from_numpy` (its
+    RANSAC generator seeded with `seed`), a stateless stage maps () to ()."""
+    if len(tree) != len(filters):
+        raise ValueError(f"{len(tree)} stage states for {len(filters)} filters")
+    states = []
+    for sub, f in zip(tree, filters):
+        if isinstance(f, StabilizationFilter):
+            states.append(stabilizer_state_from_numpy(sub, f.settings, device, seed=seed))
+        elif isinstance(sub, tuple) and not sub:
+            states.append(())
+        else:
+            raise NotImplementedError(f"no state conversion for {f.name}")
+    return tuple(states)

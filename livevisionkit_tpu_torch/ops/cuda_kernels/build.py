@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, ``build/torch_kernels/
-liblvk_cuda.so`` under the repository root, and loaded with ``ctypes``.  The
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and the objects are linked
+into one shared library with a plain C interface, ``build/torch_kernels/
+liblvk_cuda.so`` under the repository root, loaded with ``ctypes``.  The
 build runs at first use, from the sources in the checkout alone; it is
 repeated only when a source changes (a SHA-256 of the sources sits beside the
 library).  Nothing here runs at import time.
@@ -26,7 +27,7 @@ LIB_PATH = BUILD_DIR / "liblvk_cuda.so"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 
@@ -57,9 +58,21 @@ def _digest(sources: list[Path]) -> str:
     return h.hexdigest()
 
 
+def _run(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; return their outputs, or raise with the
+    first failure's."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise KernelBuildError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+    return outs
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels if the library is missing or stale; return its
-    path.  The library is written to a temporary name and renamed into
+    path.  The library is linked under a temporary name and renamed into
     place, so a concurrent loader never sees a half-written file."""
     sources = _sources()
     digest = _digest(sources)
@@ -67,20 +80,18 @@ def build(verbose: bool = False) -> Path:
     if LIB_PATH.exists() and stamp.exists() and stamp.read_text() == digest:
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *[str(p) for p in sources if p.suffix == ".cu"]]
-    if verbose:
-        cmd.insert(1, "--ptxas-options=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, LIB_PATH)
+    nvcc = nvcc_path()
+    ptxas = ["--ptxas-options=-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        cus = [p for p in sources if p.suffix == ".cu"]
+        objs = [Path(tmpdir) / (p.stem + ".o") for p in cus]
+        outs = _run([[nvcc, *NVCC_FLAGS, *ptxas, "-c", str(src), "-o", str(obj)]
+                     for src, obj in zip(cus, objs)])
+        tmp = Path(tmpdir) / LIB_PATH.name
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        if verbose:
+            print("".join(outs), flush=True)
+        os.replace(tmp, LIB_PATH)
     stamp.write_text(digest)
     return LIB_PATH
 
@@ -95,6 +106,10 @@ def library() -> ctypes.CDLL:
     lib.lvk_warp.restype = i
     lib.lvk_lk_track.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, f, p]
     lib.lvk_lk_track.restype = i
+    lib.lvk_easu_scale.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, f, f, i, p]
+    lib.lvk_easu_scale.restype = i
+    lib.lvk_rcas.argtypes = [p, p, i, i, i, f, p]
+    lib.lvk_rcas.restype = i
     lib.lvk_error_string.argtypes = [i]
     lib.lvk_error_string.restype = ctypes.c_char_p
     return lib

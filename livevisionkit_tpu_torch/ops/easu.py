@@ -1,12 +1,14 @@
 """EASU: FidelityFX-SR 1.0 Edge-Adaptive Spatial Upsampling, as plain
-PyTorch ops (counterpart of livevisionkit_tpu/ops/easu.py, the warp slice:
-`easu_remap`; `easu_scale` waits for the scaling slice).
+PyTorch ops (counterpart of livevisionkit_tpu/ops/easu.py): the offset-map
+warp `easu_remap` and the upscale `easu_scale`.
 
-Reference parity: the 12-tap edge-adaptive filter `easu` (FSR.cl:93-322) and
-the offset-map warp `easu_remap` (:362-403) with background fill and a
-nearest-neighbour ring just inside the border (:385-397).  This is the plain
-version of the warp kernel in csrc/warp.cu, which evaluates the same math
-per output pixel; the approximate rcp/rsqrt of the reference are exact here.
+Reference parity: the 12-tap edge-adaptive filter `easu` (FSR.cl:93-322),
+the upscale `easu_scale` (:324-358) and the offset-map warp `easu_remap`
+(:362-403) with background fill and a nearest-neighbour ring just inside
+the border (:385-397).  These are the plain versions of the warp kernel
+(csrc/warp.cu) and the scale kernel (csrc/easu_scale.cu), which evaluate
+the same math per output pixel (csrc/easu.cuh); the approximate rcp/rsqrt
+of the reference are exact here.
 
 Tap layout around the sample point (x right, y down), f = floor(sample):
         b c
@@ -17,8 +19,12 @@ Tap layout around the sample point (x right, y down), f = floor(sample):
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
+from livevisionkit_tpu_torch.ops.cuda_kernels import easu_scale as easu_scale_kernel
 from livevisionkit_tpu_torch.types import PixelFormat
 
 # (dx, dy) of the 12 taps relative to f, in reference tap order.
@@ -191,3 +197,97 @@ def easu_remap(
             easu_ok, easu_val, torch.where(inside, nearest, float(fill))
         )
     return out[0] if squeeze else out
+
+
+class ScalePlan(NamedTuple):
+    """How `easu_scale` places its samples: the reduced ratios oh/ih = py/qy
+    and ow/iw = px/qx, and whether the exact rational form applies."""
+
+    rational: bool
+    py: int
+    qy: int
+    px: int
+    qx: int
+
+
+def scale_plan(in_size: tuple[int, int], out_size: tuple[int, int]) -> ScalePlan:
+    """The JAX dispatch rule (livevisionkit_tpu/ops/easu.py:443): the
+    rational form for small-rational upscales on both axes jointly (every
+    FSR preset: 2, 3/2, 4/3, ...), the fallback form for every other ratio,
+    downscales included."""
+    (h, w), (oh, ow) = in_size, out_size
+    gy, gx = math.gcd(oh, h), math.gcd(ow, w)
+    py, qy, px, qx = oh // gy, h // gy, ow // gx, w // gx
+    return ScalePlan(max(py, px) <= 8 and py >= qy and px >= qx, py, qy, px, qx)
+
+
+def _axis_rational(n_out: int, p: int, q: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Source index and fraction of each output row (or column) u of the
+    rational form, in integer arithmetic so both are exact: with
+    num = 2q*u + q - p, y0 = num // 2p and pp = (num mod 2p) / 2p (the
+    half-pixel centre (u + 0.5) * q/p - 0.5)."""
+    num = torch.arange(n_out, device=device) * (2 * q) + (q - p)
+    y0 = torch.div(num, 2 * p, rounding_mode="floor")
+    rem = (num - y0 * (2 * p)).to(torch.float32)
+    # A tensor divisor: CUDA divides by a scalar as a product with its
+    # reciprocal, which is not the correctly rounded quotient.
+    return y0, rem / torch.full_like(rem, 2 * p)
+
+
+def _axis_fallback(n_in: int, n_out: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Source index and fraction of each output row (or column) of the
+    fallback form: y = clip((u + 0.5) * (n_in/n_out) - 0.5, 0, n_in - 1) in
+    f32, y0 = floor(y), pp = y - y0."""
+    y = (torch.arange(n_out, device=device, dtype=torch.float32) + 0.5) * (n_in / n_out) - 0.5
+    y = torch.clamp(y, 0.0, n_in - 1.0)
+    y0 = torch.floor(y)
+    return y0.to(torch.int64), y - y0
+
+
+def easu_scale_plain(
+    img: torch.Tensor, out_size: tuple[int, int], fmt: PixelFormat = PixelFormat.YUV
+) -> torch.Tensor:
+    """`easu_scale` as plain PyTorch ops on any device: the CPU path, and
+    the reference the scale kernel is held against on the card.
+
+    Separable sample placement (per-axis vectors), 12 gathers, `_easu_core`;
+    outside 1 <= y0 < ih-4, 1 <= x0 < iw-4 the output is the nearest tap f.
+    At 4K it holds 12 gathered tap planes (~1.2 GB for 3 channels)."""
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[None]
+    c, h, w = img.shape
+    oh, ow = out_size
+    plan = scale_plan((h, w), (oh, ow))
+    dev = img.device
+    if plan.rational:
+        y0, ppy = _axis_rational(oh, plan.py, plan.qy, dev)
+        x0, ppx = _axis_rational(ow, plan.px, plan.qx, dev)
+    else:
+        y0, ppy = _axis_fallback(h, oh, dev)
+        x0, ppx = _axis_fallback(w, ow, dev)
+    y0, ppy = y0[:, None], ppy[:, None].expand(oh, ow)
+    x0, ppx = x0[None, :], ppx[None, :].expand(oh, ow)
+
+    px = {}
+    for letter, (dx, dy) in _TAPS.items():
+        yc = torch.clamp(y0 + dy, 0, h - 1)
+        xc = torch.clamp(x0 + dx, 0, w - 1)
+        px[letter] = img[:, yc, xc]
+    easu_val = _easu_core(px, ppx, ppy, fmt)
+    easu_ok = (y0 >= 1) & (y0 < h - 4) & (x0 >= 1) & (x0 < w - 4)
+    out = torch.where(easu_ok, easu_val, px["f"])
+    return out[0] if squeeze else out
+
+
+def easu_scale(
+    img: torch.Tensor, out_size: tuple[int, int], fmt: PixelFormat = PixelFormat.YUV
+) -> torch.Tensor:
+    """EASU resize of a float32 (C, H, W) or (H, W) image to `out_size`
+    (reference easu_scale, FSR.cl:324-358), half-pixel convention
+    p = (u + 0.5) * (in/out) - 0.5.  A CUDA tensor launches the scale
+    kernel (csrc/easu_scale.cu), a CPU tensor takes `easu_scale_plain`."""
+    if img.is_cuda:
+        plan = scale_plan(tuple(img.shape[-2:]), tuple(out_size))
+        return easu_scale_kernel.easu_scale(img, tuple(out_size), plan, fmt=fmt)
+    return easu_scale_plain(img, out_size, fmt)

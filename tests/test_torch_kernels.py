@@ -18,9 +18,14 @@ import torch
 
 from livevisionkit_tpu_torch.config import FeatureDetectorSettings, OpticalFlowSettings
 from livevisionkit_tpu_torch.models.homography import Homography
+from livevisionkit_tpu_torch.ops import easu as easu_ops
+from livevisionkit_tpu_torch.ops import rcas as rcas_ops
 from livevisionkit_tpu_torch.ops import remap as remap_ops
+from livevisionkit_tpu_torch.ops.cuda_kernels import easu_scale as easu_scale_kernel
 from livevisionkit_tpu_torch.ops.cuda_kernels import lk as lk_kernel
+from livevisionkit_tpu_torch.ops.cuda_kernels import rcas as rcas_kernel
 from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
+from livevisionkit_tpu_torch.types import PixelFormat
 from livevisionkit_tpu_torch.vision import features, optical_flow
 
 
@@ -53,6 +58,17 @@ def test_wrappers_reject_cpu_tensors():
     pts = torch.zeros((4, 2))
     with pytest.raises(ValueError, match="CUDA"):
         lk_kernel.lk_track(lv, lv, pts, pts, 11, 5, 1.5e-9)
+    plan = easu_ops.scale_plan((8, 8), (16, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        easu_scale_kernel.easu_scale(img, (16, 16), plan)
+    with pytest.raises(ValueError, match="CUDA"):
+        rcas_kernel.rcas(img)
+    # The scale and RCAS kernels take f32 only.
+    for dtype in (torch.uint8, torch.float16):
+        with pytest.raises(TypeError, match="f32"):
+            easu_scale_kernel.easu_scale(img.to(dtype), (16, 16), plan)
+        with pytest.raises(TypeError, match="f32"):
+            rcas_kernel.rcas(img.to(dtype))
 
 
 @pytest.mark.cuda
@@ -101,3 +117,54 @@ def test_lk_kernel_matches_plain(cuda):
     assert int(both.sum()) >= 10
     assert float((kflow - pflow)[both].abs().max()) <= 1e-3
     assert float((kgood == pgood)[feats.valid].float().mean()) >= 0.99
+
+
+# (input (H, W), output (H, W)): 2x, 3/2 and fallback ratios on odd sizes
+# that are no multiple of the 32x8 block, a 4K-wide 1:2 row, and tiny frames.
+SCALE_CASES = [
+    ((45, 67), (90, 134)),
+    ((50, 70), (75, 105)),
+    ((37, 53), (61, 97)),
+    ((41, 59), (29, 37)),
+    ((8, 1920), (8, 3840)),
+    ((5, 7), (10, 14)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["YUV", "RGB"])
+@pytest.mark.parametrize("case", SCALE_CASES, ids=lambda c: f"{c[0][0]}x{c[0][1]}-{c[1][0]}x{c[1][1]}")
+def test_easu_scale_kernel_matches_plain(cuda, case, fmt):
+    """The scale kernel against easu_scale_plain, atol 1e-5 (fused
+    multiply-adds and rsqrt in the EASU core), through the dispatch of
+    ops/easu.easu_scale, for (C, H, W) and (H, W) inputs."""
+    (h, w), size = case
+    img = _image(cuda, (h, w))
+    pf = getattr(PixelFormat, fmt)
+    before = easu_scale_kernel.easu_scale.launches
+    got = easu_ops.easu_scale(img, size, pf)
+    assert easu_scale_kernel.easu_scale.launches == before + 1
+    want = easu_ops.easu_scale_plain(img, size, pf)
+    got2d = easu_ops.easu_scale(img[0].contiguous(), size, PixelFormat.GRAY)
+    want2d = easu_ops.easu_scale_plain(img[0], size, PixelFormat.GRAY)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (3, *size) and got2d.shape == size
+    assert float((got - want).abs().max()) <= 1e-5
+    assert float((got2d - want2d).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 45, 67), (1, 33, 97), (4, 9, 40), (3, 2, 5)])
+def test_rcas_kernel_matches_plain(cuda, shape):
+    """The RCAS kernel against rcas_plain, atol 1e-6 (each operation is
+    rounded as in the plain version), on sizes that are no multiple of
+    the block, through the dispatch of ops/rcas.rcas."""
+    rng = np.random.default_rng(5)
+    img = torch.from_numpy(rng.uniform(0.0, 1.0, size=shape).astype(np.float32)).to(cuda)
+    for sharpness in (0.2, 0.8, 1.0):
+        got = rcas_ops.rcas(img, sharpness)
+        want = rcas_ops.rcas_plain(img, sharpness)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-6
+    got2d = rcas_ops.rcas(img[0].contiguous(), 0.8)
+    assert float((got2d - rcas_ops.rcas_plain(img[0], 0.8)).abs().max()) <= 1e-6
