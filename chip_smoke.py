@@ -3,17 +3,20 @@
     python3 chip_smoke.py [--profile DIR]
 
 Builds the hand-written kernels from csrc/, holds each against its plain
-PyTorch version on the card at the shapes of the main paths, then drives
-two paths over 60-frame synthetic shaky 1080p clips rendered on the card:
-the flagship stabilizer (`livevisionkit_tpu_torch.flagship_filter`) alone,
-and the chain stabilizer -> FSR scaler to 4K (`CompositeFilter` of it and
-`ScalingFilter`), checking that each step went through its kernels once
-per frame and that the outputs are right.  It also times the scaler alone
-at 1080p -> 4K.  Every failure raises.  The last line is a JSON object
-with the device; the line before it lists each kernel's launches, error
-and times.  With no CUDA device it exits non-zero and prints no result.
-`--profile DIR` also writes torch.profiler tables of five steady steps of
-each path to DIR.
+PyTorch version on the card at the shapes of the main paths (the warp
+solo and batched over 8 streams, LK solo and over 8 streams), then drives
+the paths over synthetic shaky 1080p clips rendered on the card: the
+flagship stabilizer (`livevisionkit_tpu_torch.flagship_filter`) alone; 8
+streams of it in one batched step (`MultiStreamFilter`), alternated twice
+with the solo stabilizer; the chain stabilizer -> FSR scaler to 4K
+(`CompositeFilter` of it and `ScalingFilter`); and the multi-stream driver
+`stream_multi` over 8 in-memory 1080p BGR readers.  Each drive checks that
+its step went through its kernels once per frame (or tick) and that the
+outputs are right.  It also times the scaler alone at 1080p -> 4K.  Every
+failure raises.  The last line is a JSON object with the device; the line
+before it lists each kernel's launches, error and times.  With no CUDA
+device it exits non-zero and prints no result.  `--profile DIR` also
+writes torch.profiler tables of five steady steps of each path to DIR.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ OUT = (2160, 3840)  # the chain's 4K output
 SCALE_CASES = (((H, W), OUT), ((720, 1280), (H, W)), ((H, W), (1600, 2844)))
 N_FRAMES, N_TIMED = 60, 40
 RUNS = 20
+STREAMS = 8  # the multi-stream paths: 8 x 1080p, the JAX package's serving config
+DRIVER_FRAMES = 30  # frames per stream through `stream_multi`
 
 
 def _gpu_line() -> str:
@@ -92,8 +97,8 @@ def _similarity(scale, angle, tx, ty, dev):
 def _kernel_modules():
     from livevisionkit_tpu_torch.ops.cuda_kernels import easu_scale, lk, rcas, warp
 
-    return {"warp": warp.warp, "lk_track": lk.lk_track, "easu_scale": easu_scale.easu_scale,
-            "rcas": rcas.rcas}
+    return {"warp": warp.warp, "warp_batched": warp.warp_batched, "lk_track": lk.lk_track,
+            "easu_scale": easu_scale.easu_scale, "rcas": rcas.rcas}
 
 
 def _reset_launches() -> None:
@@ -105,11 +110,10 @@ def _launches() -> dict:
     return {name: fn.launches for name, fn in _kernel_modules().items()}
 
 
-def _shaky_clip(dev, rng):
-    """60 frames of a 1080p YUV shaky camera path over a texture larger
-    than the frame: slow drift + per-frame jitter (px, rad).  Returns the
-    frame -> texture poses and the frames."""
-    import livevisionkit_tpu_torch as lvk
+def _shaky_render(dev, rng):
+    """A 60-frame 1080p YUV shaky camera path over a texture larger than
+    the frame: slow drift + per-frame jitter (px, rad).  Returns the frame
+    -> texture poses and a function rendering frame t's (3, H, W) pixels."""
     from livevisionkit_tpu_torch.ops import remap as remap_ops
 
     tex = torch.from_numpy(_texture(H + 320, W + 320, rng)).to(dev)[None].contiguous()
@@ -118,27 +122,70 @@ def _shaky_clip(dev, rng):
     ty = 100.0 + 0.5 * np.arange(n) + rng.uniform(-6.0, 6.0, n)
     ang = rng.uniform(-0.003, 0.003, n)
     poses = [_similarity(1.0, ang[t], tx[t], ty[t], dev) for t in range(n)]
-    frames = []
-    for t, p in enumerate(poses):
-        y = remap_ops.remap(tex, p.sample_map((H, W), inverse=False), fill=0.5, filter_mode="bilinear")
-        px = torch.cat([y, torch.full((2, H, W), 0.5, device=dev)]).contiguous()
-        frames.append(lvk.Frame.create(px, timestamp=t / 30.0, fmt=lvk.PixelFormat.YUV))
+
+    def pixels(t):
+        y = remap_ops.remap(tex, poses[t].sample_map((H, W), inverse=False), fill=0.5,
+                            filter_mode="bilinear")
+        return torch.cat([y, torch.full((2, H, W), 0.5, device=dev)]).contiguous()
+
+    return poses, pixels
+
+
+def _shaky_clip(dev, rng):
+    """The frames of `_shaky_render`'s path, f32 YUV, and its poses."""
+    import livevisionkit_tpu_torch as lvk
+
+    poses, pixels = _shaky_render(dev, rng)
+    frames = [lvk.Frame.create(pixels(t), timestamp=t / 30.0, fmt=lvk.PixelFormat.YUV)
+              for t in range(N_FRAMES)]
     torch.cuda.synchronize()
     return poses, frames
 
 
+def _shaky_clips_u8(dev, rng):
+    """STREAMS shaky clips, each over its own texture and path, kept as u8
+    YUV on the card: the poses per stream and a (STREAMS, 60, 3, H, W) u8
+    tensor (3 GB where 480 f32 frames would take 12 GB)."""
+    poses, clips = [], torch.empty((STREAMS, N_FRAMES, 3, H, W), dtype=torch.uint8, device=dev)
+    for s in range(STREAMS):
+        ps, pixels = _shaky_render(dev, rng)
+        poses.append(ps)
+        for t in range(N_FRAMES):
+            clips[s, t] = torch.clamp(pixels(t) * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+    torch.cuda.synchronize()
+    return poses, clips
+
+
 def _profile(step, state, frames, path: str) -> None:
-    """torch.profiler table and trace of five steady steps."""
+    """torch.profiler table and trace of five steady steps, and a line with
+    the kernel launches and device busy time per step and the idle share of
+    the traced span (first kernel start to last kernel end)."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    steps = frames[:5]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for fr in frames[:5]:
+        for fr in steps:
             state, _ = step(state, fr)
         torch.cuda.synchronize()
     with open(path + "_profile.txt", "w") as fh:
         fh.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
     prof.export_chrome_trace(path + "_trace.json")
+    with open(path + "_trace.json") as fh:
+        kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in json.load(fh)["traceEvents"]
+                         if e.get("cat") == "kernel")
+    if not kernels:
+        print(f"profile {os.path.basename(path)}: no device kernels traced", flush=True)
+        return
+    busy, end = 0.0, kernels[0][0]
+    for start, stop in kernels:  # union of the kernel intervals, in us
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    span = end - kernels[0][0]
+    n = len(steps)
+    print(f"profile {os.path.basename(path)}: {len(kernels) / n:.1f} kernel launches per step, "
+          f"{busy / n / 1e3:.4f} ms device busy per step, {100.0 * (1.0 - busy / span):.1f}% of "
+          f"the traced span idle", flush=True)
 
 
 def check_warp(dev, rng) -> dict:
@@ -171,6 +218,58 @@ def check_warp(dev, rng) -> dict:
               f"{frac:.2e} of pixels; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
               f"(u8 3x{H}x{W}, median of {RUNS})", flush=True)
         report[mode] = {"max_abs_err": max_lsb, "ms": ms, "plain_ms": plain_ms, "f32_err": err_f}
+    return report
+
+
+def check_warp_batched(dev, rng) -> dict:
+    """K2 at S = STREAMS on 3x1080x1920 u8 and f32 frames, each stream by its
+    own stabilization-scale similarity (some leaving the frame), EASU and
+    bilinear: against the plain batched version with K1's bounds, and
+    bit-equal to STREAMS solo K1 launches."""
+    from livevisionkit_tpu_torch.ops import remap as remap_ops
+    from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
+
+    luma = torch.from_numpy(_texture(H, W, rng)).to(dev)
+    base = torch.stack([luma, 0.25 + 0.5 * luma.flip(0), 0.75 - 0.5 * luma.flip(1)])
+    img_f = torch.stack([torch.roll(base, (37 * s, 61 * s), dims=(1, 2)) for s in range(STREAMS)])
+    img_u8 = torch.clamp(img_f * 255.0 + 0.5, 0, 255).to(torch.uint8)
+    sims = [(1.0 + 0.004 * s, math.radians(0.25 * (s - 3)), 6.0 * s - 20.0, 9.0 - 3.0 * s)
+            for s in range(STREAMS)]
+    smaps = torch.stack([_similarity(*p, dev).sample_map((H, W)) for p in sims]).contiguous()
+    out = (smaps[:, 0] < 0) | (smaps[:, 0] > H - 1) | (smaps[:, 1] < 0) | (smaps[:, 1] > W - 1)
+    n_out = [int(v) for v in out.sum(dim=(1, 2))]
+    assert sum(v > 1000 for v in n_out) >= STREAMS // 2, f"maps leave the frame by {n_out} px"
+    report = {}
+    for mode in ("easu", "bilinear"):
+        kw = dict(fill=0.0, filter_mode=mode)
+        kf = warp_kernel.warp_batched(img_f, smaps, **kw)
+        pf = remap_ops.remap_batched_plain(img_f, smaps, **kw)
+        err_f = float((kf - pf).abs().max())
+        del pf
+        assert err_f <= 1e-4, f"{mode} f32 batched warp differs from plain by {err_f} > 1e-4"
+        solo_f = torch.stack([warp_kernel.warp(img_f[s], smaps[s], **kw) for s in range(STREAMS)])
+        assert torch.equal(kf, solo_f), f"{mode} f32 batched warp is not bit-equal to solo K1"
+        del kf, solo_f
+        ku = warp_kernel.warp_batched(img_u8, smaps, **kw)
+        pu = remap_ops.remap_batched_plain(img_u8, smaps, **kw)
+        d = (ku.int() - pu.int()).abs()
+        max_lsb, frac = int(d.max()), float((d > 0).float().mean())
+        del d, pu
+        assert max_lsb <= 1 and frac <= 1e-3, (
+            f"{mode} u8 batched warp: max {max_lsb} LSB on {frac:.2e} of pixels (bound 1 LSB on 1e-3)")
+        solo_u = torch.stack([warp_kernel.warp(img_u8[s], smaps[s], **kw) for s in range(STREAMS)])
+        assert torch.equal(ku, solo_u), f"{mode} u8 batched warp is not bit-equal to solo K1"
+        del ku, solo_u
+        ms = _median_ms(lambda: warp_kernel.warp_batched(img_u8, smaps, **kw))
+        plain_ms = _median_ms(lambda: remap_ops.remap_batched_plain(img_u8, smaps, **kw))
+        solo_ms = _median_ms(lambda: [warp_kernel.warp(img_u8[s], smaps[s], **kw)
+                                      for s in range(STREAMS)])
+        print(f"K2 warp_batched {mode}: {STREAMS} streams, f32 max|err| {err_f:.3e}; u8 max "
+              f"{max_lsb} LSB on {frac:.2e} of pixels; bit-equal to {STREAMS} solo K1; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {STREAMS} x solo K1 {solo_ms:.4f} ms "
+              f"(u8 {STREAMS}x3x{H}x{W}, median of {RUNS})", flush=True)
+        report[mode] = {"max_abs_err": max_lsb, "ms": ms, "plain_ms": plain_ms,
+                        "solo_ms": solo_ms, "f32_err": err_f}
     return report
 
 
@@ -211,6 +310,55 @@ def check_lk(dev, rng) -> dict:
     print(f"K3 lk_track: max|flow err| {err:.3e} px over {int(both.sum())} features, masks "
           f"agree on {agree:.4f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
           f"(3 levels of 272x480, 510 features, median of {RUNS})", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_lk_batched(dev, rng) -> dict:
+    """K3 with the stream axis: STREAMS pyramid pairs (3 levels of 272x480,
+    each its own texture and motion, 510 grid features each) in one launch,
+    against the plain version under vmap; the solo bounds per stream."""
+    from livevisionkit_tpu_torch.config import FeatureDetectorSettings, OpticalFlowSettings
+    from livevisionkit_tpu_torch.ops import remap as remap_ops
+    from livevisionkit_tpu_torch.ops.cuda_kernels import lk as lk_kernel
+    from livevisionkit_tpu_torch.vision import features, optical_flow
+
+    size = (272, 480)
+    det = FeatureDetectorSettings()
+    flow_s = OpticalFlowSettings()
+    prev, nxt, pts, valid = [], [], [], []
+    for s in range(STREAMS):
+        tex = torch.from_numpy(_texture(400, 640, rng)).to(dev)
+        f0 = remap_ops.remap_plain(tex, _similarity(1.0, 0.0, 60.0, 50.0, dev).sample_map(size, inverse=False), fill=0.5)
+        f1 = remap_ops.remap_plain(tex, _similarity(
+            1.0, math.radians(0.2 * s - 0.6), 60.0 + 0.7 * s - 2.0, 50.0 - 0.4 * s + 1.0,
+            dev).sample_map(size, inverse=False), fill=0.5)
+        feats, _ = features.detect(f0, features.initial_thresholds(det, dev), det)
+        prev.append(optical_flow.Pyramid.build(f0, flow_s.pyramid_levels).levels)
+        nxt.append(optical_flow.Pyramid.build(f1, flow_s.pyramid_levels).levels)
+        pts.append(feats.points)
+        valid.append(feats.valid)
+    prev = [torch.stack(lv) for lv in zip(*prev)]
+    nxt = [torch.stack(lv) for lv in zip(*nxt)]
+    pts, valid = torch.stack(pts), torch.stack(valid)
+    assert pts.shape == (STREAMS, 510, 2)
+    zero = torch.zeros_like(pts)
+    args = (prev, nxt, pts, zero, flow_s.window_size, flow_s.iterations, flow_s.min_eigen_threshold)
+    kflow, kgood = lk_kernel.lk_track(*args)
+    pflow, pgood = optical_flow.track_batched_plain(prev, nxt, pts, flow_s)
+    errs, agrees = [], []
+    for s in range(STREAMS):
+        both = kgood[s] & pgood[s] & valid[s]
+        assert int(both.sum()) >= 100, f"stream {s}: too few features tracked by both"
+        errs.append(float((kflow[s] - pflow[s])[both].abs().max()))
+        agrees.append(float((kgood[s] == pgood[s])[valid[s]].float().mean()))
+    err, agree = max(errs), min(agrees)
+    assert err <= 1e-3, f"batched LK flow differs from plain by {err} px > 1e-3"
+    assert agree >= 0.99, f"batched LK masks agree on {agree:.4f} < 0.99 of features"
+    ms = _median_ms(lambda: lk_kernel.lk_track(*args))
+    plain_ms = _median_ms(lambda: optical_flow.track_batched_plain(prev, nxt, pts, flow_s))
+    print(f"K3 lk_track, {STREAMS} streams in one launch: max|flow err| {err:.3e} px, masks "
+          f"agree on >= {agree:.4f}; kernel {ms:.4f} ms, plain (vmap) {plain_ms:.4f} ms "
+          f"(3 levels of {STREAMS}x272x480, {STREAMS}x510 features, median of {RUNS})", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
@@ -265,11 +413,12 @@ def check_rcas(dev, rng) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def _drive(filt, state, frames, per_frame):
-    """Step `filt` over `frames` with synchronizing calls made errors; return
-    the state, device ms/frame (CUDA events) and host ms/frame over the
-    last N_TIMED frames.  `per_frame(t, state, out)` keeps what is checked."""
-    n = len(frames)
+def _drive(filt, state, frames, per_frame, n=None):
+    """Step `filt` over `frames` (n of them, by default len(frames)) with
+    synchronizing calls made errors; return the state, device ms/frame
+    (CUDA events) and host ms/frame over the last N_TIMED frames.
+    `per_frame(t, state, out)` keeps what is checked."""
+    n = len(frames) if n is None else n
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     wall0 = 0.0
     # The step must never wait for the device (that is what lets it be
@@ -322,7 +471,7 @@ def run_slice(dev, rng, profile_dir: str | None) -> dict:
     state, gpu_ms, wall_ms = _drive(filt, state, frames, keep)
     launches = _launches()
 
-    want = {"warp": n, "lk_track": n, "easu_scale": 0, "rcas": 0}
+    want = {"warp": n, "warp_batched": 0, "lk_track": n, "easu_scale": 0, "rcas": 0}
     assert launches == want, f"kernel launches {launches}, want {want}"
     valid = [bool(v) for v in valids]
     assert valid == [t >= delay for t in range(n)], f"valid flags {valid}"
@@ -352,6 +501,130 @@ def run_slice(dev, rng, profile_dir: str | None) -> dict:
         _profile(filt.step, state, frames, os.path.join(profile_dir, "slice"))
     return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms,
             "jitter_in": j_in, "jitter_out": j_out}
+
+
+def run_multistream(dev, poses, clips, profile_dir: str | None) -> dict:
+    """STREAMS flagship 1080p streams, each its own shaky clip (u8 on the
+    card), through `MultiStreamFilter.step` for 60 ticks: one batched warp
+    and one LK launch a tick, no solo warp, no per-stream fallback, no host
+    sync inside the step."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.models.homography import Homography
+    from livevisionkit_tpu_torch.models.warp_field import WarpField
+    from livevisionkit_tpu_torch.parallel.streams import MultiStreamFilter
+    from livevisionkit_tpu_torch.utils import metrics
+
+    n = N_FRAMES
+    filt = lvk.flagship_filter()
+    multi = MultiStreamFilter(filt, STREAMS)
+    delay = filt.delay
+    spec = lvk.FrameSpec(H, W, 3, lvk.PixelFormat.YUV)
+    live = torch.ones(STREAMS, dtype=torch.bool, device=dev)
+
+    def frame(t):
+        return lvk.Frame(pixels=clips[:, t].to(torch.float32) * (1.0 / 255.0),
+                         timestamp=torch.full((STREAMS,), t / 30.0, device=dev), valid=live,
+                         format=lvk.PixelFormat.YUV)
+
+    multi.step(multi.init(spec, device=dev), frame(0))  # fills the per-shape caches
+    state = multi.init(spec, device=dev)
+    torch.cuda.synchronize()
+
+    valids, finite, corrections, stabilities = [], [], [], []
+
+    def keep(t, st, out):
+        assert out.pixels.shape == (STREAMS, 3, H, W)
+        valids.append(out.valid)
+        finite.append(torch.isfinite(out.pixels).flatten(1).all(dim=1))
+        corrections.append(st.correction.offsets)
+        stabilities.append(st.stability)
+
+    _reset_launches()
+    state, gpu_ms, wall_ms = _drive(multi, state, (frame(t) for t in range(n)), keep, n=n)
+    launches = _launches()
+
+    want = {"warp": 0, "warp_batched": n, "lk_track": n, "easu_scale": 0, "rcas": 0}
+    assert launches == want, f"kernel launches {launches}, want {want}"
+    valid = torch.stack(valids).cpu().numpy()  # (ticks, streams)
+    finite = torch.stack(finite).cpu().numpy()
+    ok = (torch.stack(stabilities)[1:] > 0.0).float().mean(dim=0).cpu().numpy()
+    corr = torch.stack(corrections).cpu()
+    s_pt = torch.tensor([[W / 2 + 160.0, H / 2 + 160.0]])
+    jitter = []
+    for s in range(STREAMS):
+        assert list(valid[:, s]) == [t >= delay for t in range(n)], f"stream {s} valid {valid[:, s]}"
+        assert finite[:, s].all(), f"stream {s}: non-finite output pixels"
+        assert ok[s] >= 0.9, f"stream {s}: tracker ok on {ok[s]:.3f} < 0.9 of frames"
+        x_in, y_out = [], []
+        for t in range(delay, n):
+            x = Homography(m=poses[s][t - delay].m.cpu()).inverse().transform(s_pt)
+            x_in.append(x[0].numpy())
+            y_out.append(WarpField(offsets=corr[t, s]).to_homography((H, W)).transform(x)[0].numpy())
+        j_in, j_out = metrics.jitter(np.array(x_in)), metrics.jitter(np.array(y_out))
+        assert j_out < j_in, f"stream {s}: output jitter {j_out:.3f} px not below input {j_in:.3f}"
+        jitter.append((j_in, j_out))
+    tick_ms = max(gpu_ms, wall_ms)
+    print(f"multistream: {STREAMS} x {n} flagship 1080p frames in {n} batched ticks, valid from "
+          f"tick {delay}, tracker ok on >= {ok.min():.3f} of frames per stream, jitter "
+          + ", ".join(f"{a:.2f}->{b:.2f}" for a, b in jitter) + f" px, launches {launches}",
+          flush=True)
+    print(f"multistream: {gpu_ms:.4f} ms/tick on the device, {wall_ms:.4f} ms/tick host wall "
+          f"clock (last {N_TIMED} ticks); {gpu_ms / STREAMS:.4f} / {wall_ms / STREAMS:.4f} ms per "
+          f"stream-frame; {1e3 * STREAMS / tick_ms:.1f} frames/s aggregate", flush=True)
+    if profile_dir:
+        _profile(multi.step, state, [frame(t) for t in range(5)],
+                 os.path.join(profile_dir, "multistream"))
+    return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms, "jitter": jitter}
+
+
+def run_stream_multi(dev, clips) -> dict:
+    """`stream_multi` end to end: STREAMS in-memory readers of host u8 BGR
+    1080p frames (DRIVER_FRAMES each, from the clips) through the flagship
+    filter on the card; every frame comes out, in order, with no stall."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.ops import color
+    from livevisionkit_tpu_torch.runtime.multistream import stream_multi
+
+    yuv, bgr = lvk.PixelFormat.YUV, lvk.PixelFormat.BGR
+    readers = []
+    for s in range(STREAMS):
+        frames = []
+        for t in range(DRIVER_FRAMES):
+            x = color.convert(clips[s, t].to(torch.float32) * (1.0 / 255.0), yuv, bgr)
+            u8 = torch.clamp(x * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8).permute(1, 2, 0)
+            frames.append((u8.contiguous().cpu().numpy(), t / 30.0))
+        readers.append(frames)
+    got = [[] for _ in range(STREAMS)]
+    bad = []
+
+    def on_output(i, px, ts):  # each stream's writer thread appends to its own list
+        if len(got[i]) % 10 == 0 and not (np.isfinite(px).all() and px.shape == (3, H, W)):
+            bad.append((i, ts))
+        got[i].append(ts)
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    stats = stream_multi(lvk.flagship_filter(), [iter(f) for f in readers], on_output=on_output,
+                         device=dev)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    total = STREAMS * DRIVER_FRAMES
+    assert stats.frames_in == total and stats.frames_out == total, (
+        f"frames in {stats.frames_in}, out {stats.frames_out}, want {total} each")
+    assert stats.stalls == 0, f"{stats.stalls} stall bubbles"
+    want = {"warp": 0, "warp_batched": stats.batches, "lk_track": stats.batches, "easu_scale": 0,
+            "rcas": 0}
+    assert launches == want, f"kernel launches {launches}, want {want}"
+    assert not bad, f"bad output frames {bad}"
+    times = [float(np.float32(t / 30.0)) for t in range(DRIVER_FRAMES)]
+    for i in range(STREAMS):
+        assert got[i] == times, f"stream {i} timestamps {got[i]}"
+    fps = total / wall
+    print(f"stream_multi: {STREAMS} readers x {DRIVER_FRAMES} u8 BGR 1080p frames, {stats.batches} "
+          f"batches, frames in {stats.frames_in} == out {stats.frames_out}, {stats.stalls} stalls, "
+          f"per-stream order kept; {fps:.1f} frames/s aggregate over the whole run ({wall:.3f} s), "
+          f"{stats.fps_aggregate:.1f} frames/s by the batch stopwatch", flush=True)
+    return {"batches": stats.batches, "fps": fps, "fps_batches": stats.fps_aggregate}
 
 
 def run_chain(dev, rng, profile_dir: str | None) -> dict:
@@ -387,7 +660,7 @@ def run_chain(dev, rng, profile_dir: str | None) -> dict:
     state, gpu_ms, wall_ms = _drive(chain, state, frames, keep)
     launches = _launches()
 
-    want = {"warp": n, "lk_track": n, "easu_scale": n, "rcas": n}
+    want = {"warp": n, "warp_batched": 0, "lk_track": n, "easu_scale": n, "rcas": n}
     assert launches == want, f"kernel launches {launches}, want {want}"
     valid = [bool(v) for v in valids]
     assert valid == [t >= delay for t in range(n)], f"valid flags {valid}"
@@ -407,7 +680,8 @@ def run_chain(dev, rng, profile_dir: str | None) -> dict:
     _reset_launches()
     _, sc_gpu_ms, sc_wall_ms = _drive(scaler, (), frames, lambda t, st, out: None)
     sc_launches = _launches()
-    assert sc_launches == {"warp": 0, "lk_track": 0, "easu_scale": n, "rcas": n}, sc_launches
+    assert sc_launches == {"warp": 0, "warp_batched": 0, "lk_track": 0, "easu_scale": n,
+                           "rcas": n}, sc_launches
     print(f"scaler alone: 1080p -> 4K EASU + RCAS 0.8, {sc_gpu_ms:.4f} ms/frame on the device, "
           f"{sc_wall_ms:.4f} ms/frame host wall clock (last {N_TIMED} of {n} frames)", flush=True)
     return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms,
@@ -436,17 +710,38 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     warp_rep = check_warp(dev, rng)
+    warp_b_rep = check_warp_batched(dev, rng)
     lk_rep = check_lk(dev, rng)
+    lk_b_rep = check_lk_batched(dev, rng)
     easu_rep = check_easu_scale(dev, rng)
     rcas_rep = check_rcas(dev, rng)
-    sl = run_slice(dev, rng, args.profile)
+    poses, clips = _shaky_clips_u8(dev, rng)
+    # The solo step and the 8-stream tick alternate, since the host's pace
+    # wanders between phases of one process.
+    pairs = []
+    for k in range(2):
+        profile = args.profile if k == 0 else None
+        pairs.append((run_slice(dev, rng, profile), run_multistream(dev, poses, clips, profile)))
+    for k, (a, b) in enumerate(pairs):
+        print(f"pair {k + 1}: solo step {a['gpu_ms']:.4f} / {a['wall_ms']:.4f} ms/frame; "
+              f"{STREAMS}-stream tick {b['gpu_ms']:.4f} / {b['wall_ms']:.4f} ms/tick = "
+              f"{b['gpu_ms'] / STREAMS:.4f} / {b['wall_ms'] / STREAMS:.4f} ms per stream-frame "
+              f"(device / host)", flush=True)
+    sl, ms = pairs[0]
     ch = run_chain(dev, rng, args.profile)
+    sm = run_stream_multi(dev, clips)
+    del clips
 
     kernels = [
         {"name": "warp", "route": "cuda", "source": "livevisionkit_tpu_torch/csrc/warp.cu",
          "replaces": "livevisionkit_tpu/ops/tpu_kernels/warp.py:312",
          "launches": sl["launches"]["warp"], "max_abs_err": warp_rep["easu"]["max_abs_err"],
          "ms": warp_rep["easu"]["ms"], "plain_ms": warp_rep["easu"]["plain_ms"]},
+        {"name": "warp_batched", "route": "cuda", "source": "livevisionkit_tpu_torch/csrc/warp.cu",
+         "replaces": "livevisionkit_tpu/ops/tpu_kernels/warp.py:829",
+         "launches": ms["launches"]["warp_batched"],
+         "max_abs_err": warp_b_rep["easu"]["max_abs_err"],
+         "ms": warp_b_rep["easu"]["ms"], "plain_ms": warp_b_rep["easu"]["plain_ms"]},
         {"name": "lk_track", "route": "cuda", "source": "livevisionkit_tpu_torch/csrc/lk.cu",
          "replaces": "livevisionkit_tpu/ops/tpu_kernels/lk.py:255",
          "launches": sl["launches"]["lk_track"], "max_abs_err": lk_rep["max_abs_err"],
@@ -463,8 +758,11 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{gpu} | slice {sl['gpu_ms']:.4f} ms/frame (device), {sl['wall_ms']:.4f} ms/frame (host)"
+          f" | {STREAMS}-stream tick {ms['gpu_ms']:.4f} / {ms['wall_ms']:.4f} ms"
           f" | chain {ch['gpu_ms']:.4f} / {ch['wall_ms']:.4f} | scaler alone "
-          f"{ch['scaler_gpu_ms']:.4f} / {ch['scaler_wall_ms']:.4f}", flush=True)
+          f"{ch['scaler_gpu_ms']:.4f} / {ch['scaler_wall_ms']:.4f}"
+          f" | stream_multi {sm['fps']:.1f} frames/s | K3 x{STREAMS} {lk_b_rep['ms']:.4f} ms",
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

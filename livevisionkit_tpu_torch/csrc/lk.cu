@@ -2,7 +2,10 @@
 // hand-written Hopper kernel behind vision/optical_flow.track.
 //
 // Replaces livevisionkit_tpu/ops/tpu_kernels/lk.py::lk_track (body
-// _lk_pyramid_kernel) and, with n_levels = 1, lk_level (_lk_kernel).  The
+// _lk_pyramid_kernel) and, with n_levels = 1, lk_level (_lk_kernel).  It
+// tracks the features of S streams in one launch (the grid's y axis), each
+// stream through its own pyramids: S = 1 is the solo call, S > 1 the
+// torch.func.vmap rule of vision/optical_flow over a batch of streams.  The
 // oracle is the XLA path's semantics, vision/optical_flow._track_level,
 // whose plain PyTorch version sits beside the wrapper: per level, a
 // (win+2)^2 template patch bilinearly sampled at the sub-pixel point with
@@ -28,8 +31,11 @@ namespace {
 constexpr int kMaxLevels = 8;
 constexpr int kWarpsPerBlock = 4;
 
+// Level l of stream s is the row-contiguous (h[l], w[l]) plane at
+// img[l] + s * ss[l] (ss[l] = 0: one pyramid shared by every stream).
 struct Levels {
   const float* img[kMaxLevels];
+  long long ss[kMaxLevels];
   int h[kMaxLevels];
   int w[kMaxLevels];
 };
@@ -58,13 +64,19 @@ __device__ __forceinline__ float sample(const float* __restrict__ img, int h, in
 }
 
 __global__ void lk_kernel(Levels prev, Levels next, int n_levels,
-                          const float* __restrict__ pts, const float* __restrict__ flow0,
+                          const float* __restrict__ pts, long long pts_ss,
+                          const float* __restrict__ flow0, long long flow0_ss,
                           float* __restrict__ flow_out, uint8_t* __restrict__ good_out,
                           int n, int win, int iters, float min_eig_thr) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int fid = blockIdx.x * kWarpsPerBlock + warp;
   if (fid >= n) return;  // whole warps only; no block-wide barrier below
+  const int stream = blockIdx.y;
+  pts += stream * pts_ss;
+  flow0 += stream * flow0_ss;
+  flow_out += static_cast<size_t>(stream) * 2 * n;
+  good_out += static_cast<size_t>(stream) * n;
   const int area = win * win, bw = win + 2, r = win / 2;
   float* tmpl = smem + warp * (3 * area + bw * bw);
   float* gxs = tmpl + area;
@@ -79,8 +91,8 @@ __global__ void lk_kernel(Levels prev, Levels next, int n_levels,
   for (int lvl = n_levels - 1; lvl >= 0; --lvl) {
     const float s = static_cast<float>(1 << lvl);
     const float px = p0x / s, py = p0y / s;
-    const float* __restrict__ P = prev.img[lvl];
-    const float* __restrict__ Q = next.img[lvl];
+    const float* __restrict__ P = prev.img[lvl] + stream * prev.ss[lvl];
+    const float* __restrict__ Q = next.img[lvl] + stream * next.ss[lvl];
     const int h = prev.h[lvl], w = prev.w[lvl];
 
     // Template patch with a 1-px gradient halo.
@@ -156,18 +168,26 @@ __global__ void lk_kernel(Levels prev, Levels next, int n_levels,
 
 }  // namespace
 
-// prev/next: n_levels device pointers to (hs[l], ws[l]) f32 levels, level 0
-// first; pts, flow0, flow: (n, 2) f32 (x, y) at level-0 scale; good: (n,) u8.
-// Returns cudaGetLastError() after the launch.
-extern "C" int lvk_lk_track(const void* const* prev, const void* const* next, const int* hs,
-                            const int* ws, int n_levels, const void* pts, const void* flow0,
-                            void* flow, void* good, int n, int win, int iters,
-                            float min_eig_thr, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+// n_streams streams of n features.  prev/next: n_levels device pointers to
+// (hs[l], ws[l]) f32 levels, level 0 first, stream s's plane at stream
+// stride prev_ss[l] / next_ss[l] elements; pts, flow0: per stream (n, 2) f32
+// (x, y) at level-0 scale, stream strides pts_ss / flow0_ss (0 = shared);
+// flow: contiguous (n_streams, n, 2) f32; good: (n_streams, n) u8.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int lvk_lk_track(const void* const* prev, const void* const* next,
+                            const long long* prev_ss, const long long* next_ss, const int* hs,
+                            const int* ws, int n_levels, int n_streams, const void* pts,
+                            long long pts_ss, const void* flow0, long long flow0_ss, void* flow,
+                            void* good, int n, int win, int iters, float min_eig_thr,
+                            void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || n_streams < 1 || n_streams > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   Levels p, q;
   for (int l = 0; l < n_levels; ++l) {
     p.img[l] = static_cast<const float*>(prev[l]);
     q.img[l] = static_cast<const float*>(next[l]);
+    p.ss[l] = prev_ss[l];
+    q.ss[l] = next_ss[l];
     p.h[l] = q.h[l] = hs[l];
     p.w[l] = q.w[l] = ws[l];
   }
@@ -180,9 +200,11 @@ extern "C" int lvk_lk_track(const void* const* prev, const void* const* next, co
   }
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > 0) {
-    lk_kernel<<<blocks, 32 * kWarpsPerBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-        p, q, n_levels, static_cast<const float*>(pts), static_cast<const float*>(flow0),
-        static_cast<float*>(flow), static_cast<uint8_t*>(good), n, win, iters, min_eig_thr);
+    const dim3 grid(blocks, n_streams);
+    lk_kernel<<<grid, 32 * kWarpsPerBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+        p, q, n_levels, static_cast<const float*>(pts), pts_ss,
+        static_cast<const float*>(flow0), flow0_ss, static_cast<float*>(flow),
+        static_cast<uint8_t*>(good), n, win, iters, min_eig_thr);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,8 +16,10 @@ import torch
 
 from livevisionkit_tpu_torch.ops import color as color_ops
 from livevisionkit_tpu_torch.types import PixelFormat
+from livevisionkit_tpu_torch.utils.batching import pytree_dataclass
 
 
+@pytree_dataclass(static=("format",))
 @dataclass(frozen=True)
 class Frame:
     pixels: torch.Tensor  # (C, H, W) float32 in [0, 1] (or the u8 queue payload)
@@ -75,6 +77,13 @@ class Frame:
         carried alpha plane here (livevisionkit_tpu/data/frame.py:106-119);
         that waits for the port's alpha slice, since no alpha is carried."""
         return self.replace(pixels=pixels, format=self.format if fmt is None else fmt)
+
+    def reformat(self, target: PixelFormat) -> "Frame":
+        """Full colour conversion (reference ``reformatTo``,
+        Data/VideoFrame.cpp:170-306), by `ops/color.convert`."""
+        if target is self.format:
+            return self
+        return self.replace(pixels=color_ops.convert(self.pixels, self.format, target), format=target)
 
     def luma(self) -> torch.Tensor:
         """(H, W) luminance plane — the tracking input.  GRAY/YUV take plane

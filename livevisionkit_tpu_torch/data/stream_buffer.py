@@ -14,7 +14,10 @@ from dataclasses import dataclass
 
 import torch
 
+from livevisionkit_tpu_torch.utils.batching import pytree_dataclass
 
+
+@pytree_dataclass(static=("capacity",))
 @dataclass(frozen=True)
 class StreamBuffer:
     data: dict[str, torch.Tensor]  # every tensor has leading dim == capacity
@@ -50,11 +53,13 @@ class StreamBuffer:
     ) -> "StreamBuffer":
         """Append; evicts the oldest element when full.
 
-        The slot write is IN PLACE (one `index_copy_` per tensor): the JAX
+        The slot write is IN PLACE (one `index_put_` per tensor): the JAX
         buffer is immutable and returns a new array, but a functional copy
         of the 1080p u8 delay queue would move the whole window every frame.
         The returned buffer shares its storage with `self`; callers that
-        need the pre-push contents must `copy()` first.
+        need the pre-push contents must `copy()` first.  `index_put_` has a
+        batching rule, so under torch.func.vmap (parallel/streams.py) a
+        batched buffer is written in place too, one slot per stream.
 
         `advance` (0-d bool, default always-true) gates the counters only:
         `elem` is still written to the slot a normal push would use (when
@@ -65,9 +70,9 @@ class StreamBuffer:
         write_slot = torch.where(
             full, self.start, torch.remainder(self.start + self.count, self.capacity)
         )
-        idx = write_slot.reshape(1)
+        idx = (write_slot.reshape(1),)
         for k, d in self.data.items():
-            d.index_copy_(0, idx, elem[k].to(d.dtype).unsqueeze(0))
+            d.index_put_(idx, elem[k].to(d.dtype).unsqueeze(0))
         new_start = torch.where(
             full, torch.remainder(self.start + 1, self.capacity), self.start
         )

@@ -60,14 +60,16 @@ def where_state(pred: torch.Tensor, new: Any, old: Any) -> Any:
 class VideoFilter:
     """Base class: configuration object + step function."""
 
-    def init(self, spec: FrameSpec, device: torch.device | str = "cpu") -> Any:
-        """Create the initial state for a stream of `spec` frames on `device`."""
+    def init(self, spec: FrameSpec, device: torch.device | str = "cpu", seed: int = 0) -> Any:
+        """Create the initial state for a stream of `spec` frames on `device`;
+        `seed` seeds any random state (the stabilizer's RANSAC generator)."""
         return ()
 
     def step(self, state: Any, frame: Frame, *, drain: bool | torch.Tensor = False) -> tuple[Any, Frame]:
         """Process one frame.
 
-        `drain` (a bool or a 0-d bool tensor, per stream) marks end-of-stream
+        `drain` (a bool or a 0-d bool tensor, per stream; under
+        parallel/streams.MultiStreamFilter an (S,) tensor) marks end-of-stream
         flushing: the runtime feeds valid=False bubbles to push delay-queue
         residents out.  Delay filters advance their temporal machinery on
         drain bubbles (with identity motion), whereas ordinary invalid
@@ -104,10 +106,10 @@ class CompositeFilter(VideoFilter):
 
     filters: tuple[VideoFilter, ...]
 
-    def init(self, spec: FrameSpec, device: torch.device | str = "cpu") -> tuple:
+    def init(self, spec: FrameSpec, device: torch.device | str = "cpu", seed: int = 0) -> tuple:
         states = []
         for f in self.filters:
-            states.append(f.init(spec, device=device))
+            states.append(f.init(spec, device=device, seed=seed))
             spec = f.output_spec(spec)
         return tuple(states)
 

@@ -28,6 +28,7 @@ from livevisionkit_tpu_torch.data.stream_buffer import StreamBuffer
 from livevisionkit_tpu_torch.filters.base import FrameSpec, VideoFilter, where_state
 from livevisionkit_tpu_torch.models.homography import Homography
 from livevisionkit_tpu_torch.models.warp_field import WarpField
+from livevisionkit_tpu_torch.utils.batching import pytree_dataclass
 from livevisionkit_tpu_torch.vision import frame_tracker, path_smoother
 
 
@@ -40,6 +41,7 @@ def _dequantize_u8(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32) * (1.0 / 255.0)
 
 
+@pytree_dataclass()
 @dataclass(frozen=True)
 class StabilizerState:
     tracker: frame_tracker.TrackerState

@@ -8,6 +8,11 @@ thresholds, smoother window, delay queue, trust and scene quality) is what
 state)`` — and reads it by attribute name only, so this module imports
 neither JAX nor the JAX package.  The JAX PRNG key is not carried: the
 port's RANSAC generator is seeded instead.
+
+The leaf conversions keep every leaf's shape, so a batched JAX state, whose
+leaves carry a leading stream axis (``jax.vmap`` of ``init`` or of
+``step``), becomes the port's batched state for
+parallel/streams.MultiStreamFilter through the same functions.
 """
 
 from __future__ import annotations
@@ -115,3 +120,4 @@ def composite_state_from_numpy(
         else:
             raise NotImplementedError(f"no state conversion for {f.name}")
     return tuple(states)
+

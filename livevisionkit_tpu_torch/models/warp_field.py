@@ -18,6 +18,7 @@ import torch
 
 from livevisionkit_tpu_torch.models.homography import Homography
 from livevisionkit_tpu_torch.ops import remap as remap_ops
+from livevisionkit_tpu_torch.utils.batching import pytree_dataclass
 
 
 def _to_px(offsets: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
@@ -50,6 +51,7 @@ def _grid_unit(field_shape: tuple[int, int], device) -> tuple[torch.Tensor, torc
     return yy, xx
 
 
+@pytree_dataclass()
 @dataclass(frozen=True)
 class WarpField:
     offsets: torch.Tensor  # (2, Hm, Wm) normalized backward offsets (dy, dx)

@@ -101,10 +101,10 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with every entry
     point's argument and return types declared."""
     lib = ctypes.CDLL(str(build()))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lvk_warp.argtypes = [p, p, p, i, i, i, i, i, i, i, i, f, i, p]
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.lvk_warp.argtypes = [p, p, p, i, ll, ll, i, i, i, i, i, i, i, i, f, i, p]
     lib.lvk_warp.restype = i
-    lib.lvk_lk_track.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i, f, p]
+    lib.lvk_lk_track.argtypes = [p, p, p, p, p, p, i, i, p, ll, p, ll, p, p, i, i, i, f, p]
     lib.lvk_lk_track.restype = i
     lib.lvk_easu_scale.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, f, f, i, p]
     lib.lvk_easu_scale.restype = i

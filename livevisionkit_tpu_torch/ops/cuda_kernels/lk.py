@@ -2,7 +2,8 @@
 
 Replaces livevisionkit_tpu/ops/tpu_kernels/lk.py::lk_track (body
 ``_lk_pyramid_kernel``) and, as its ``n_levels = 1`` call, ``lk_level``
-(``_lk_kernel``).  Its plain version is vision/optical_flow.track_plain.
+(``_lk_kernel``).  Its plain version is vision/optical_flow.track_plain
+(under torch.func.vmap for a batch of streams).
 
 What bounds it on the H100: per feature and level it gathers a 13x13
 template patch and, per Gauss-Newton iteration, a 12x12 search window
@@ -12,7 +13,9 @@ little work to fill 132 SMs, so it is bound by gather latency and launch
 overhead, not bandwidth.  Its design: one warp per feature walks all
 levels in one launch (no per-level launches or host round trips), keeps
 the template and gradients in shared memory, and reduces with warp
-shuffles, so no block-wide barrier or atomics are needed.
+shuffles, so no block-wide barrier or atomics are needed.  The features
+of S streams go in one launch (the grid's y axis), which fills S times as
+many warps.
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ import ctypes
 import torch
 
 from livevisionkit_tpu_torch.ops.cuda_kernels import build
+from livevisionkit_tpu_torch.utils.batching import blocks_contiguous
 
 _MAX_LEVELS = 8
 _MAX_WINDOW = 31
+_MAX_STREAMS = 65535
 
 
 def lk_track(
@@ -36,9 +41,13 @@ def lk_track(
     iterations: int,
     min_eigen_threshold: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Track (N, 2) level-0 points through two CUDA pyramids; returns the
+    """Track level-0 points through two CUDA pyramids, in one launch.
+
+    Solo: (H_l, W_l) levels and (N, 2) points and initial flow; returns the
     (N, 2) level-0 flow and the (N,) bool status (gradient-conditioned and
-    in-bounds at every level)."""
+    in-bounds at every level).  Batched over S streams: (S, H_l, W_l)
+    levels and (S, N, 2) points and flow; returns (S, N, 2) and (S, N).  A
+    batched operand may be broadcast over streams (stream stride 0)."""
     n_levels = len(prev_levels)
     if n_levels != len(next_levels) or not 1 <= n_levels <= _MAX_LEVELS:
         raise ValueError(f"need 1..{_MAX_LEVELS} levels in both pyramids")
@@ -49,30 +58,42 @@ def lk_track(
     for t in tensors:
         if not t.is_cuda or t.device != dev:
             raise ValueError("LK kernel needs every tensor on one CUDA device")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise TypeError("LK kernel takes contiguous f32 tensors")
+        if t.dtype != torch.float32:
+            raise TypeError("LK kernel takes f32 tensors")
+    batched = pts.ndim == 3
+    lead = 1 if batched else 0
+    s = pts.shape[0] if batched else 1
+    n = pts.shape[lead]
+    if pts.shape[lead:] != (n, 2) or init_flow.shape != pts.shape or not 1 <= s <= _MAX_STREAMS:
+        raise ValueError("pts and init_flow must both be (N, 2), or (S, N, 2) for S streams")
     for a, b in zip(prev_levels, next_levels):
-        if a.ndim != 2 or a.shape != b.shape:
-            raise ValueError("pyramid levels must be matching (H, W) planes")
-    n = pts.shape[0]
-    if pts.shape != (n, 2) or init_flow.shape != (n, 2):
-        raise ValueError("pts and init_flow must both be (N, 2)")
-    flow = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    good = torch.empty((n,), dtype=torch.uint8, device=dev)
+        if a.ndim != 2 + lead or a.shape != b.shape or (batched and a.shape[0] != s):
+            raise ValueError("pyramid levels must be matching (H, W) planes, (S, H, W) batched")
+    for t in tensors:
+        if not (blocks_contiguous(t) if batched else t.is_contiguous()):
+            raise ValueError("LK kernel needs each stream's planes and point sets contiguous")
+    flow = torch.empty((s, n, 2), dtype=torch.float32, device=dev)
+    good = torch.empty((s, n), dtype=torch.uint8, device=dev)
     ptrs = ctypes.c_void_p * n_levels
     ints = ctypes.c_int * n_levels
+    strides = ctypes.c_longlong * n_levels
+    sstride = (lambda t: t.stride(0)) if batched else (lambda t: 0)
     lib = build.library()
     status = lib.lvk_lk_track(
         ptrs(*[t.data_ptr() for t in prev_levels]),
         ptrs(*[t.data_ptr() for t in next_levels]),
-        ints(*[t.shape[0] for t in prev_levels]),
-        ints(*[t.shape[1] for t in prev_levels]),
-        n_levels, pts.data_ptr(), init_flow.data_ptr(), flow.data_ptr(), good.data_ptr(),
-        n, window_size, iterations, float(min_eigen_threshold),
-        torch.cuda.current_stream(dev).cuda_stream,
+        strides(*[sstride(t) for t in prev_levels]),
+        strides(*[sstride(t) for t in next_levels]),
+        ints(*[t.shape[-2] for t in prev_levels]),
+        ints(*[t.shape[-1] for t in prev_levels]),
+        n_levels, s, pts.data_ptr(), sstride(pts), init_flow.data_ptr(), sstride(init_flow),
+        flow.data_ptr(), good.data_ptr(), n, window_size, iterations,
+        float(min_eigen_threshold), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(status, "lk_track")
     lk_track.launches += 1
+    if not batched:
+        flow, good = flow[0], good[0]
     return flow, good.bool()
 
 

@@ -9,7 +9,12 @@ Conventions shared with the JAX package:
 
 One dispatch rule: a CUDA tensor goes to the hand-written warp kernel
 (ops/cuda_kernels/warp.py), a CPU tensor to the plain ops below, which are
-also the kernel's reference.
+also the kernel's reference.  `remap` is the custom op ``lvk::remap``, whose
+vmap rule (the counterpart of the JAX package's `custom_vmap` on the Pallas
+core, livevisionkit_tpu/ops/remap.py:177-242) turns `torch.func.vmap` over
+streams into ONE call of ``lvk::remap_batched``: one launch of the kernel
+over all S streams on the card, one call of the plain ops on the stacked
+tensors on the CPU, and never a loop over streams.
 """
 
 from __future__ import annotations
@@ -19,6 +24,9 @@ import torch
 from livevisionkit_tpu_torch.ops import easu as easu_ops
 from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
 from livevisionkit_tpu_torch.types import PixelFormat
+from livevisionkit_tpu_torch.utils.batching import stream_first
+
+_SCHEMA = "(Tensor img, Tensor sample_map, float? fill, str filter_mode, str fmt) -> Tensor"
 
 
 def bilinear_sample(
@@ -76,9 +84,47 @@ def remap(
         raise ValueError(f"unknown filter_mode {filter_mode!r}")
     if fmt is None:
         fmt = PixelFormat.YUV
+    return _remap_op(img, sample_map, None if fill is None else float(fill), filter_mode, fmt.value)
+
+
+@torch.library.custom_op("lvk::remap", mutates_args=(), schema=_SCHEMA)
+def _remap_op(img, sample_map, fill, filter_mode, fmt):
+    """One frame: the warp kernel for a CUDA tensor, the plain ops for a
+    CPU one."""
     if img.is_cuda:
-        return warp_kernel.warp(img, sample_map, fill=fill, filter_mode=filter_mode, fmt=fmt)
-    return remap_plain(img, sample_map, fill=fill, filter_mode=filter_mode, fmt=fmt)
+        return warp_kernel.warp(img, sample_map, fill=fill, filter_mode=filter_mode,
+                                fmt=PixelFormat(fmt))
+    return remap_plain(img, sample_map, fill=fill, filter_mode=filter_mode, fmt=PixelFormat(fmt))
+
+
+@torch.library.custom_op("lvk::remap_batched", mutates_args=(), schema=_SCHEMA)
+def _remap_batched_op(img, sample_map, fill, filter_mode, fmt):
+    """S frames (S, C, H, W) or (S, H, W) by S maps (S, 2, H', W'): one
+    launch of the warp kernel for CUDA tensors, the plain ops on the stack
+    for CPU ones."""
+    if img.is_cuda:
+        return warp_kernel.warp_batched(img, sample_map, fill=fill, filter_mode=filter_mode,
+                                        fmt=PixelFormat(fmt))
+    return remap_batched_plain(img, sample_map, fill=fill, filter_mode=filter_mode,
+                               fmt=PixelFormat(fmt))
+
+
+@_remap_op.register_fake
+@_remap_batched_op.register_fake
+def _remap_fake(img, sample_map, fill, filter_mode, fmt):
+    return img.new_empty(img.shape[:-2] + sample_map.shape[-2:])
+
+
+def _remap_vmap(info, in_dims, img, sample_map, fill, filter_mode, fmt):
+    """vmap rule of ``lvk::remap``: one batched warp for all streams.  An
+    operand that is not batched (a map shared by every stream) is broadcast
+    at stream stride 0, not copied (the JAX rule broadcasts it too)."""
+    imgs = stream_first(img, in_dims[0], info.batch_size)
+    maps = stream_first(sample_map, in_dims[1], info.batch_size)
+    return _remap_batched_op(imgs, maps, fill, filter_mode, fmt), 0
+
+
+_remap_op.register_vmap(_remap_vmap)
 
 
 def remap_plain(
@@ -96,6 +142,21 @@ def remap_plain(
     else:
         out = bilinear_sample(img_f, sample_map[0], sample_map[1], fill=fill)
     return _cast_like(out, img.dtype)
+
+
+def remap_batched_plain(
+    imgs: torch.Tensor,
+    sample_maps: torch.Tensor,
+    fill: float | None = 0.0,
+    filter_mode: str = "bilinear",
+    fmt: PixelFormat = PixelFormat.YUV,
+) -> torch.Tensor:
+    """`remap_plain` over a leading stream axis, by torch.func.vmap: the
+    batched rule's CPU path, and the reference the batched warp kernel is
+    held against on the card."""
+    return torch.func.vmap(
+        lambda im, sm: remap_plain(im, sm, fill=fill, filter_mode=filter_mode, fmt=fmt)
+    )(imgs, sample_maps)
 
 
 def _cast_like(out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from livevisionkit_tpu_torch.config import FeatureDetectorSettings
+from livevisionkit_tpu_torch.utils.batching import pytree_dataclass
 
 # Bresenham radius-3 circle, circular order, as (dy, dx).
 _RING = (
@@ -24,6 +25,7 @@ _RING = (
 )
 
 
+@pytree_dataclass()
 @dataclass(frozen=True)
 class FeatureGrid:
     """Fixed-capacity feature set: one slot per suppression-grid cell."""
@@ -178,11 +180,13 @@ def rebin(
     win = is_best & (slot_ids == winner_slot[cell])
     # Losers go to a spare slot g that is cut off afterwards (torch has no
     # "drop" scatter mode, and an out-of-range index faults on CUDA).
+    # Out of place: under torch.func.vmap a fresh (unbatched) tensor cannot
+    # take an in-place write of per-stream values.
     safe_cell = torch.where(win, cell, g)
     idx = (safe_cell,)
-    out_points = torch.zeros((g + 1, 2), dtype=torch.float32, device=dev).index_put_(idx, points)
-    out_scores = torch.zeros((g + 1,), dtype=torch.float32, device=dev).index_put_(idx, scores)
-    out_valid = torch.zeros((g + 1,), dtype=torch.bool, device=dev).index_put_(
+    out_points = torch.zeros((g + 1, 2), dtype=torch.float32, device=dev).index_put(idx, points)
+    out_scores = torch.zeros((g + 1,), dtype=torch.float32, device=dev).index_put(idx, scores)
+    out_valid = torch.zeros((g + 1,), dtype=torch.bool, device=dev).index_put(
         idx, torch.ones_like(win))
     return FeatureGrid(points=out_points[:g], scores=out_scores[:g], valid=out_valid[:g])
 

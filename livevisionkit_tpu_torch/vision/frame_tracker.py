@@ -21,6 +21,7 @@ import torch
 from livevisionkit_tpu_torch.config import FrameTrackerSettings
 from livevisionkit_tpu_torch.models.warp_field import WarpField
 from livevisionkit_tpu_torch.ops import resample
+from livevisionkit_tpu_torch.utils.batching import pytree_dataclass
 from livevisionkit_tpu_torch.vision import features as features_mod
 from livevisionkit_tpu_torch.vision import optical_flow, ransac
 from livevisionkit_tpu_torch.vision.features import FeatureGrid
@@ -37,6 +38,7 @@ class TrackResult:
     points_valid: torch.Tensor  # (G,) tracked mask
 
 
+@pytree_dataclass(static=("generator",))
 @dataclass(frozen=True)
 class TrackerState:
     pyramid: Pyramid

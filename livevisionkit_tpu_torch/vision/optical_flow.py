@@ -9,9 +9,12 @@ the 2x2 gradient matrix with min-eigenvalue rejection, then frozen-Jacobian
 Gauss-Newton steps that sample the search window from the next level, with
 a closed-form 2x2 solve.  Lost features are masked, never removed.
 
-`track` sends CUDA tensors to the whole-pyramid kernel
-(ops/cuda_kernels/lk.py) and CPU tensors to `track_plain`, the kernel's
-reference: direct clamped gathers, batched over the features.
+`track` goes through the custom op ``lvk::lk_track``: CUDA tensors launch
+the whole-pyramid kernel (ops/cuda_kernels/lk.py), CPU tensors take
+`track_plain`, the kernel's reference (direct clamped gathers, batched over
+the features).  Its vmap rule turns `torch.func.vmap` over streams into one
+call of ``lvk::lk_track_batched``: one launch for the features of all S
+streams on the card, `track_plain` under vmap on the CPU.
 """
 
 from __future__ import annotations
@@ -23,8 +26,13 @@ import torch
 from livevisionkit_tpu_torch.config import OpticalFlowSettings
 from livevisionkit_tpu_torch.ops import resample
 from livevisionkit_tpu_torch.ops.cuda_kernels import lk as lk_kernel
+from livevisionkit_tpu_torch.utils.batching import pytree_dataclass, stream_first
+
+_SCHEMA = ("(Tensor[] prev, Tensor[] next, Tensor pts, Tensor init_flow, int window_size, "
+           "int iterations, float min_eigen_threshold) -> (Tensor, Tensor)")
 
 
+@pytree_dataclass()
 @dataclass(frozen=True)
 class Pyramid:
     """Per-frame image pyramid (the tracking state carried between frames)."""
@@ -137,6 +145,75 @@ def track_plain(
     return flow, good
 
 
+def track_batched_plain(
+    prev_levels, next_levels, pts: torch.Tensor, settings: OpticalFlowSettings,
+    init_flow: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`track_plain` over a leading stream axis, by torch.func.vmap:
+    (S, H_l, W_l) levels and (S, N, 2) points give (S, N, 2) flow and
+    (S, N) status.  The batched rule's CPU path, and the reference the
+    kernel's stream axis is held against on the card."""
+    if init_flow is None:
+        init_flow = torch.zeros_like(pts)
+    return torch.func.vmap(
+        lambda p, q, x, f: track_plain(Pyramid(tuple(p)), Pyramid(tuple(q)), x, settings, f)
+    )(list(prev_levels), list(next_levels), pts, init_flow)
+
+
+def _settings(window_size: int, iterations: int, min_eigen_threshold: float) -> OpticalFlowSettings:
+    return OpticalFlowSettings(window_size=window_size, iterations=iterations,
+                               min_eigen_threshold=min_eigen_threshold)
+
+
+@torch.library.custom_op("lvk::lk_track", mutates_args=(), schema=_SCHEMA)
+def _lk_op(prev, next, pts, init_flow, window_size, iterations, min_eigen_threshold):  # noqa: A002
+    """One stream: the LK kernel for CUDA tensors, `track_plain` for CPU ones."""
+    if pts.is_cuda:
+        return lk_kernel.lk_track(tuple(prev), tuple(next), pts.contiguous(),
+                                  init_flow.contiguous(), window_size, iterations,
+                                  min_eigen_threshold)
+    return track_plain(Pyramid(tuple(prev)), Pyramid(tuple(next)), pts,
+                       _settings(window_size, iterations, min_eigen_threshold), init_flow)
+
+
+@torch.library.custom_op("lvk::lk_track_batched", mutates_args=(), schema=_SCHEMA)
+def _lk_batched_op(prev, next, pts, init_flow, window_size, iterations,  # noqa: A002
+                   min_eigen_threshold):
+    """S streams, stream axis first: one launch of the LK kernel for CUDA
+    tensors, `track_plain` under vmap for CPU ones."""
+    if pts.is_cuda:
+        return lk_kernel.lk_track(tuple(prev), tuple(next), pts, init_flow, window_size,
+                                  iterations, min_eigen_threshold)
+    return track_batched_plain(prev, next, pts,
+                               _settings(window_size, iterations, min_eigen_threshold), init_flow)
+
+
+@_lk_op.register_fake
+@_lk_batched_op.register_fake
+def _lk_fake(prev, next, pts, init_flow, window_size, iterations, min_eigen_threshold):  # noqa: A002
+    return pts.new_empty(pts.shape), pts.new_empty(pts.shape[:-1], dtype=torch.bool)
+
+
+def _lk_vmap(info, in_dims, prev, next, pts, init_flow, window_size, iterations,  # noqa: A002
+             min_eigen_threshold):
+    """vmap rule of ``lvk::lk_track``: the features of all streams in one
+    batched call; unbatched operands are broadcast at stream stride 0."""
+    n = info.batch_size
+
+    def levels(ts, dims):
+        dims = dims if isinstance(dims, (list, tuple)) else [dims] * len(ts)
+        return [stream_first(t, d, n) for t, d in zip(ts, dims)]
+
+    prev_b, next_b = levels(prev, in_dims[0]), levels(next, in_dims[1])
+    out = _lk_batched_op(prev_b, next_b, stream_first(pts, in_dims[2], n),
+                         stream_first(init_flow, in_dims[3], n), window_size, iterations,
+                         min_eigen_threshold)
+    return out, (0, 0)
+
+
+_lk_op.register_vmap(_lk_vmap)
+
+
 def track(
     prev: Pyramid,
     nxt: Pyramid,
@@ -150,12 +227,7 @@ def track(
     Returns (new_pts, tracked): new (N, 2) level-0 positions and the status
     mask (input-valid & gradient-conditioned & in-bounds at every level).
     """
-    if pts.is_cuda:
-        flow0 = torch.zeros_like(pts) if init_flow is None else init_flow.to(pts.dtype)
-        flow, good = lk_kernel.lk_track(
-            prev.levels, nxt.levels, pts.contiguous(), flow0.contiguous(),
-            settings.window_size, settings.iterations, settings.min_eigen_threshold,
-        )
-    else:
-        flow, good = track_plain(prev, nxt, pts, settings, init_flow)
+    flow0 = torch.zeros_like(pts) if init_flow is None else init_flow.to(pts.dtype)
+    flow, good = _lk_op(list(prev.levels), list(nxt.levels), pts, flow0, settings.window_size,
+                        settings.iterations, float(settings.min_eigen_threshold))
     return pts + flow, valid & good

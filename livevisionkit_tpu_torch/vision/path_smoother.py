@@ -17,8 +17,10 @@ import torch
 from livevisionkit_tpu_torch.config import PathSmootherSettings
 from livevisionkit_tpu_torch.data.stream_buffer import StreamBuffer
 from livevisionkit_tpu_torch.models.warp_field import WarpField
+from livevisionkit_tpu_torch.utils.batching import pytree_dataclass
 
 
+@pytree_dataclass()
 @dataclass(frozen=True)
 class SmootherState:
     positions: StreamBuffer  # window of integrated path positions ({"offsets"})

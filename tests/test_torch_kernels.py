@@ -54,10 +54,14 @@ def test_wrappers_reject_cpu_tensors():
     smap = torch.zeros((2, 8, 8))
     with pytest.raises(ValueError, match="CUDA"):
         warp_kernel.warp(img, smap)
+    with pytest.raises(ValueError, match="CUDA"):
+        warp_kernel.warp_batched(img[None], smap[None])
     lv = (torch.zeros((8, 8)),)
     pts = torch.zeros((4, 2))
     with pytest.raises(ValueError, match="CUDA"):
         lk_kernel.lk_track(lv, lv, pts, pts, 11, 5, 1.5e-9)
+    with pytest.raises(ValueError, match="CUDA"):
+        lk_kernel.lk_track((lv[0][None],), (lv[0][None],), pts[None], pts[None], 11, 5, 1.5e-9)
     plan = easu_ops.scale_plan((8, 8), (16, 16))
     with pytest.raises(ValueError, match="CUDA"):
         easu_scale_kernel.easu_scale(img, (16, 16), plan)
@@ -117,6 +121,96 @@ def test_lk_kernel_matches_plain(cuda):
     assert int(both.sum()) >= 10
     assert float((kflow - pflow)[both].abs().max()) <= 1e-3
     assert float((kgood == pgood)[feats.valid].float().mean()) >= 0.99
+
+
+def _stream_images(dev):
+    """Three distinct (3, 120, 160) frames, stacked."""
+    img = _image(dev)
+    return torch.stack([img, img.flip(-1), img.flip(-2)]).contiguous()
+
+
+def _stream_maps(dev, size):
+    """One stabilization-scale similarity per stream, corners leaving the frame."""
+    sims = [(1.03, 0.03, 3.2, -2.7), (0.98, -0.02, -4.0, 5.5), (1.0, 0.01, 12.0, 1.0)]
+    return torch.stack([_similarity(*p, dev).sample_map(size) for p in sims])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared_map", [False, True])
+@pytest.mark.parametrize("mode", ["easu", "bilinear"])
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_warp_batched_matches_plain_and_solo(cuda, mode, dtype, shared_map):
+    """K2 at S = 3: within K1's bounds of the plain batched version (f32
+    atol 1e-4; u8 at most 1 LSB on at most 0.1% of pixels) and bit-equal
+    to three solo launches.  A map shared by every stream goes in at stream
+    stride 0.  torch.func.vmap of ops/remap.remap launches it once and the
+    solo kernel never."""
+    imgs = _stream_images(cuda)
+    if dtype == "uint8":
+        imgs = torch.clamp(imgs * 255.0 + 0.5, 0, 255).to(torch.uint8)
+    maps = _stream_maps(cuda, imgs.shape[-2:])
+    if shared_map:
+        maps = maps[:1].expand(3, -1, -1, -1)
+    before = warp_kernel.warp_batched.launches
+    got = warp_kernel.warp_batched(imgs, maps, fill=0.0, filter_mode=mode)
+    assert warp_kernel.warp_batched.launches == before + 1
+    want = remap_ops.remap_batched_plain(imgs, maps, fill=0.0, filter_mode=mode)
+    solo = torch.stack([warp_kernel.warp(imgs[s], maps[s], fill=0.0, filter_mode=mode)
+                        for s in range(3)])
+    solo_before, before = warp_kernel.warp.launches, warp_kernel.warp_batched.launches
+    via_vmap = torch.func.vmap(lambda im, sm: remap_ops.remap(im, sm, fill=0.0, filter_mode=mode))(
+        imgs, maps)
+    assert warp_kernel.warp_batched.launches == before + 1
+    assert warp_kernel.warp.launches == solo_before
+    torch.cuda.synchronize()
+    assert torch.equal(got, solo) and torch.equal(got, via_vmap)
+    if dtype == "uint8":
+        d = (got.int() - want.int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+    else:
+        assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_lk_kernel_stream_axis(cuda):
+    """K3 over S = 3 streams in one launch: per stream, flow within 1e-3 px
+    of the plain version under vmap on features both mark tracked, masks
+    agreeing on >= 99% of valid features, and bit-equal to solo launches."""
+    rng = np.random.default_rng(6)
+    size = (96, 128)
+    det = FeatureDetectorSettings(grid_shape=(8, 8), fast_threshold_init=0.06)
+    s = OpticalFlowSettings()
+    p0s, p1s, pts, valid = [], [], [], []
+    for k in range(3):
+        tex = torch.from_numpy(rng.uniform(0.2, 0.5, size=(200, 260)).astype(np.float32)).to(cuda)
+        for _ in range(40):
+            y, x = rng.integers(0, 180), rng.integers(0, 240)
+            tex[y:y + 10, x:x + 10] = float(rng.choice([0.05, 0.95]))
+        f0 = remap_ops.remap_plain(tex, _similarity(1.0, 0.0, 40.0, 40.0, cuda).sample_map(size, inverse=False))
+        f1 = remap_ops.remap_plain(tex, _similarity(
+            1.0, math.radians(0.5 * k), 41.0 + k, 39.0, cuda).sample_map(size, inverse=False))
+        feats, _ = features.detect(f0, features.initial_thresholds(det, cuda), det)
+        p0s.append(optical_flow.Pyramid.build(f0, 3).levels)
+        p1s.append(optical_flow.Pyramid.build(f1, 3).levels)
+        pts.append(feats.points)
+        valid.append(feats.valid)
+    prev = [torch.stack(lv) for lv in zip(*p0s)]
+    nxt = [torch.stack(lv) for lv in zip(*p1s)]
+    pts = torch.stack(pts)
+    zero = torch.zeros_like(pts)
+    args = (s.window_size, s.iterations, s.min_eigen_threshold)
+    before = lk_kernel.lk_track.launches
+    kflow, kgood = lk_kernel.lk_track(prev, nxt, pts, zero, *args)
+    assert lk_kernel.lk_track.launches == before + 1
+    pflow, pgood = optical_flow.track_batched_plain(prev, nxt, pts, s)
+    torch.cuda.synchronize()
+    for k in range(3):
+        sflow, sgood = lk_kernel.lk_track(p0s[k], p1s[k], pts[k].contiguous(), zero[k], *args)
+        assert torch.equal(sflow, kflow[k]) and torch.equal(sgood, kgood[k])
+        both = kgood[k] & pgood[k] & valid[k]
+        assert int(both.sum()) >= 10
+        assert float((kflow[k] - pflow[k])[both].abs().max()) <= 1e-3
+        assert float((kgood[k] == pgood[k])[valid[k]].float().mean()) >= 0.99
 
 
 # (input (H, W), output (H, W)): 2x, 3/2 and fallback ratios on odd sizes
