@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Builds the hand-written kernels from csrc/, holds each against its plain
+Builds the hand-written kernels from csrc/ (printing each one's registers,
+shared memory and spills from ptxas), holds each against its plain
 PyTorch version on the card at the shapes of the main paths (the warp
-solo and batched over 8 streams, LK solo and over 8 streams), then drives
+solo and batched over 8 streams, also under maps whose blocks exceed the
+warp's shared-memory box, LK solo and over 8 streams), then drives
 the paths over synthetic shaky 1080p clips rendered on the card: the
 flagship stabilizer (`livevisionkit_tpu_torch.flagship_filter`) alone; 8
 streams of it in one batched step (`MultiStreamFilter`), alternated twice
@@ -14,7 +16,13 @@ with the solo stabilizer; the chain stabilizer -> FSR scaler to 4K
 its step went through its kernels once per frame (or tick) and that the
 outputs are right.  It also times the scaler alone at 1080p -> 4K.  Every
 failure raises.  The last line is a JSON object with the device; the line
-before it lists each kernel's launches, error and times.  With no CUDA
+before it lists each kernel's launches, error and times, with its bound
+(the larger of its bytes over 3.35 TB/s and its f32 operations over 67
+TFLOP/s, the H100 SXM's published peaks, counted from this run's shapes
+and maps) and the time of one PyTorch call computing the same function
+where there is one (none computes EASU, LK or RCAS).  Kernel times are
+taken behind a device spin, so the host's enqueue gap is not in them; the
+text lines give each also without the spin, as timed before.  With no CUDA
 device it exits non-zero and prints no result.  `--profile DIR` also
 writes torch.profiler tables of five steady steps of each path to DIR.
 """
@@ -36,8 +44,12 @@ import torch
 H, W = 1080, 1920
 OUT = (2160, 3840)  # the chain's 4K output
 # K5 cases: the chain's 2x, the reference scaler's default output from 720p
-# (a 3/2 ratio, config.py's ScalingFilterSettings) and one fallback ratio.
-SCALE_CASES = (((H, W), OUT), ((720, 1280), (H, W)), ((H, W), (1600, 2844)))
+# (a 3/2 ratio, config.py's ScalingFilterSettings), 4/3 from 810p, one
+# fallback ratio and a 0.5x downscale (whose tiles gather from device memory).
+SCALE_CASES = (((H, W), OUT), ((720, 1280), (H, W)), ((810, 1440), (H, W)),
+               ((H, W), (1600, 2844)), ((H, W), (540, 960)))
+# The H100 SXM's published peaks (NVIDIA data sheet, at its 700 W limit).
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 N_FRAMES, N_TIMED = 60, 40
 RUNS = 20
 STREAMS = 8  # the multi-stream paths: 8 x 1080p, the JAX package's serving config
@@ -59,19 +71,115 @@ def _nvcc_line() -> str:
     return [ln for ln in out.splitlines() if "release" in ln][-1].strip()
 
 
-def _median_ms(fn, runs: int = RUNS) -> float:
-    """Median of `runs` CUDA-event timings of fn() after one warm-up call."""
+def _median_ms(fn, runs: int = RUNS, spin: bool = True) -> float:
+    """Median of `runs` CUDA-event timings of fn() after one warm-up call.
+    With `spin` the device first spins for ~0.5 ms, so the host has queued
+    fn's launches before the device reaches them: a time is the device's
+    own.  Without it (the timer of the kernels line before the spin was
+    added) a time also holds the host's enqueue gap between the first event
+    and the launch, a few tens of us."""
     fn()
     times = []
     for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(1_000_000)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes
+    over the memory rate and the f32 operations over the f32 rate."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _easu_ops(n_out: int, n_src: int, nc: int) -> int:
+    """f32 operations of n_out EASU outputs of nc channels (luma = plane 0)
+    whose bilinear corners are n_src distinct source pixels, counted one
+    per add, sub, mul, div, min, max, abs, compare, select and rsqrt in the
+    plain version (ops/easu._easu_core).  A corner's direction terms (27:
+    two luma differences across it, each with a division) depend on its
+    source pixel alone, so they are counted once per pixel; per output, the
+    blend of its four corners' terms (30), kernel shaping (44), the 12
+    weighted taps (21 + 2 per channel each), the de-ring window (6 per
+    channel) and the normalisation (4 + 3 per channel).  A nearest or fill
+    output costs none."""
+    return 27 * n_src + n_out * (30 + 44 + 12 * (21 + 2 * nc) + 6 * nc + 4 + 3 * nc)
+
+
+def _easu_work(smap: torch.Tensor, h: int, w: int) -> tuple[int, int]:
+    """(outputs, corner pixels) of a (2, H', W') or (S, 2, H', W') map over
+    (h, w) sources: the outputs whose 4x4 EASU support lies inside, and the
+    source pixels that are a bilinear corner f, g, j or k of one of them,
+    summed over the maps."""
+    n_out = n_src = 0
+    for m in smap.reshape(-1, *smap.shape[-3:]):
+        y0, x0 = torch.floor(m[0]).long(), torch.floor(m[1]).long()
+        ok = (x0 >= 1) & (y0 >= 1) & (x0 < w - 4) & (y0 < h - 4)
+        f = (y0 * w + x0)[ok]
+        corner = torch.zeros(h * w, dtype=torch.bool, device=m.device)
+        for d in (0, 1, w, w + 1):
+            corner[f + d] = True
+        n_out += int(ok.sum())
+        n_src += int(corner.sum())
+    return n_out, n_src
+
+
+def _lk_ops(n_feat: int, n_levels: int, win: int, iters: int) -> int:
+    """f32 operations of the LK kernel (csrc/lk.cu), which runs every
+    feature through every level and iteration: per level the (win+2)^2
+    template samples (9 each), per window pixel the Scharr gradients and
+    the gradient matrix (28), ~15 for the eigenvalue test, and per
+    iteration 14 per window pixel (sample, residual, two products) and ~10
+    for the step."""
+    area = win * win
+    per_level = (win + 2) ** 2 * 9 + 28 * area + 15 + iters * (14 * area + 10)
+    return n_feat * n_levels * per_level
+
+
+def _rcas_ops(nc: int, h: int, w: int) -> int:
+    """f32 operations of RCAS (csrc/rcas.cu): 25 per channel and 6 per
+    pixel inside the one-pixel border, which is copied."""
+    return (25 * nc + 6) * (h - 2) * (w - 2)
+
+
+def _affine_map(size, scale: float, angle: float, dev) -> torch.Tensor:
+    """(2, H, W) map taking output pixel u to scale * R(angle) (u - c) + c
+    about the centre c: scale 2 is a 0.5x zoom-out."""
+    h, w = size
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float64, device=dev) - (h - 1) / 2,
+                            torch.arange(w, dtype=torch.float64, device=dev) - (w - 1) / 2,
+                            indexing="ij")
+    co, si = math.cos(angle) * scale, math.sin(angle) * scale
+    return torch.stack([si * xx + co * yy + (h - 1) / 2,
+                        co * xx - si * yy + (w - 1) / 2]).float().contiguous()
+
+
+# Maps whose blocks spread over more source pixels than the EASU warp's
+# shared-memory box holds, so they take its device-memory path.
+OVERFLOW_MAPS = {"zoom-out 0.5x": (2.0, 0.0), "rotation 30 deg": (1.0, math.radians(30.0))}
+
+
+def _paths(launch, dev) -> tuple[int, int]:
+    """(blocks holding an EASU sample, blocks of them whose source box
+    exceeds the shared-memory box and which gather from device memory), as
+    the warp kernel counts them in `launch(counts)`."""
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    launch(counts)
+    used, over = counts.tolist()
+    return used, over
+
+
+def _u8_diff(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
+    d = (a.int() - b.int()).abs()
+    return int(d.max()), float((d > 0).float().mean())
 
 
 def _texture(h: int, w: int, rng: np.random.Generator) -> np.ndarray:
@@ -190,7 +298,9 @@ def _profile(step, state, frames, path: str) -> None:
 
 def check_warp(dev, rng) -> dict:
     """K1 against its plain version at 1080x1920x3 under a stabilization-
-    scale similarity whose corner leaves the frame (fill + nearest ring)."""
+    scale similarity whose corner leaves the frame (fill + nearest ring),
+    then under the overflowing maps; the bilinear mode beside
+    F.grid_sample, its one-call PyTorch counterpart inside the frame."""
     from livevisionkit_tpu_torch.ops import remap as remap_ops
     from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
 
@@ -200,6 +310,8 @@ def check_warp(dev, rng) -> dict:
     smap = _similarity(1.01, math.radians(0.5), 12.0, -7.0, dev).sample_map((H, W)).contiguous()
     n_out = float(((smap[0] < 0) | (smap[0] > H - 1) | (smap[1] < 0) | (smap[1] > W - 1)).sum())
     assert n_out > 1000, f"the map must leave the frame somewhere ({n_out} px do)"
+    used, over = _paths(lambda c: warp_kernel.warp(img_u8, smap, block_paths=c), dev)
+    assert over == 0, f"{over} of {used} blocks of the stabilization map overflow the box"
     report = {}
     for mode in ("easu", "bilinear"):
         kf = warp_kernel.warp(img_f, smap, fill=0.0, filter_mode=mode)
@@ -208,16 +320,54 @@ def check_warp(dev, rng) -> dict:
         assert err_f <= 1e-4, f"{mode} f32 warp differs from plain by {err_f} > 1e-4"
         ku = warp_kernel.warp(img_u8, smap, fill=0.0, filter_mode=mode)
         pu = remap_ops.remap_plain(img_u8, smap, fill=0.0, filter_mode=mode)
-        d = (ku.int() - pu.int()).abs()
-        max_lsb, frac = int(d.max()), float((d > 0).float().mean())
+        max_lsb, frac = _u8_diff(ku, pu)
         assert max_lsb <= 1 and frac <= 1e-3, (
             f"{mode} u8 warp: max {max_lsb} LSB on {frac:.2e} of pixels (bound 1 LSB on 1e-3)")
-        ms = _median_ms(lambda: warp_kernel.warp(img_u8, smap, fill=0.0, filter_mode=mode))
+        kernel = lambda: warp_kernel.warp(img_u8, smap, fill=0.0, filter_mode=mode)  # noqa: E731
+        ms, gap_ms = _median_ms(kernel), _median_ms(kernel, spin=False)
         plain_ms = _median_ms(lambda: remap_ops.remap_plain(img_u8, smap, fill=0.0, filter_mode=mode))
         print(f"K1 warp {mode}: f32 max|err| {err_f:.3e}; u8 max {max_lsb} LSB on "
-              f"{frac:.2e} of pixels; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(u8 3x{H}x{W}, median of {RUNS})", flush=True)
+              f"{frac:.2e} of pixels; kernel {ms:.4f} ms ({gap_ms:.4f} without the device "
+              f"spin), plain {plain_ms:.4f} ms (u8 3x{H}x{W}, median of {RUNS})", flush=True)
         report[mode] = {"max_abs_err": max_lsb, "ms": ms, "plain_ms": plain_ms, "f32_err": err_f}
+    n_easu, n_src = _easu_work(smap, H, W)
+    report["easu"]["bound_ms"], report["easu"]["bound_by"] = _bound(
+        img_u8.numel() * 2 + smap.numel() * 4, _easu_ops(n_easu, n_src, 3))
+    print(f"K1 warp easu: {used} blocks stage their source box, {over} gather from device "
+          f"memory; bound {report['easu']['bound_ms']:.4f} ms ({report['easu']['bound_by']}, "
+          f"{n_easu} EASU outputs, {n_src} corner pixels)", flush=True)
+
+    # The bilinear mode's yardstick: one grid_sample call on the f32 frame.
+    # Outside the frame the kernel fills where grid_sample clamps, so the
+    # two are compared inside it.
+    grid = torch.stack([smap[1] * (2.0 / (W - 1)) - 1.0, smap[0] * (2.0 / (H - 1)) - 1.0],
+                       dim=-1)[None].contiguous()
+    gs = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+        img_f[None], grid, mode="bilinear", padding_mode="border", align_corners=True)
+    inside = (smap[0] >= 0) & (smap[0] <= H - 1) & (smap[1] >= 0) & (smap[1] <= W - 1)
+    pf = remap_ops.remap_plain(img_f, smap, fill=0.0, filter_mode="bilinear")
+    gs_err = float(((gs()[0] - pf).abs() * inside).max())
+    bil_f32_ms = _median_ms(lambda: warp_kernel.warp(img_f, smap, fill=0.0, filter_mode="bilinear"))
+    gs_ms = _median_ms(gs)
+    print(f"K1 warp bilinear f32 3x{H}x{W}: kernel {bil_f32_ms:.4f} ms, F.grid_sample "
+          f"{gs_ms:.4f} ms (max |grid_sample - plain| inside the frame {gs_err:.3e})", flush=True)
+    report["bilinear"].update(f32_ms=bil_f32_ms, library_ms=gs_ms, library_err=gs_err)
+
+    for name, (scale, angle) in OVERFLOW_MAPS.items():
+        omap = _affine_map((H, W), scale, angle, dev)
+        used, over = _paths(lambda c: warp_kernel.warp(img_u8, omap, block_paths=c), dev)
+        assert over >= used // 2, f"{name}: only {over} of {used} blocks overflow the box"
+        err_f = float((warp_kernel.warp(img_f, omap) - remap_ops.remap_plain(
+            img_f, omap, filter_mode="easu")).abs().max())
+        assert err_f <= 1e-4, f"{name}: f32 warp differs from plain by {err_f} > 1e-4"
+        max_lsb, frac = _u8_diff(warp_kernel.warp(img_u8, omap),
+                                 remap_ops.remap_plain(img_u8, omap, filter_mode="easu"))
+        assert max_lsb <= 1 and frac <= 1e-3, (
+            f"{name}: u8 warp max {max_lsb} LSB on {frac:.2e} of pixels (bound 1 LSB on 1e-3)")
+        ms = _median_ms(lambda: warp_kernel.warp(img_u8, omap))
+        print(f"K1 warp easu, {name}: {over} of {used} blocks gather from device memory; f32 "
+              f"max|err| {err_f:.3e}; u8 max {max_lsb} LSB on {frac:.2e} of pixels; kernel "
+              f"{ms:.4f} ms (u8)", flush=True)
     return report
 
 
@@ -252,24 +402,52 @@ def check_warp_batched(dev, rng) -> dict:
         del kf, solo_f
         ku = warp_kernel.warp_batched(img_u8, smaps, **kw)
         pu = remap_ops.remap_batched_plain(img_u8, smaps, **kw)
-        d = (ku.int() - pu.int()).abs()
-        max_lsb, frac = int(d.max()), float((d > 0).float().mean())
-        del d, pu
+        max_lsb, frac = _u8_diff(ku, pu)
+        del pu
         assert max_lsb <= 1 and frac <= 1e-3, (
             f"{mode} u8 batched warp: max {max_lsb} LSB on {frac:.2e} of pixels (bound 1 LSB on 1e-3)")
         solo_u = torch.stack([warp_kernel.warp(img_u8[s], smaps[s], **kw) for s in range(STREAMS)])
         assert torch.equal(ku, solo_u), f"{mode} u8 batched warp is not bit-equal to solo K1"
         del ku, solo_u
-        ms = _median_ms(lambda: warp_kernel.warp_batched(img_u8, smaps, **kw))
+        kernel = lambda: warp_kernel.warp_batched(img_u8, smaps, **kw)  # noqa: E731
+        ms, gap_ms = _median_ms(kernel), _median_ms(kernel, spin=False)
         plain_ms = _median_ms(lambda: remap_ops.remap_batched_plain(img_u8, smaps, **kw))
         solo_ms = _median_ms(lambda: [warp_kernel.warp(img_u8[s], smaps[s], **kw)
                                       for s in range(STREAMS)])
         print(f"K2 warp_batched {mode}: {STREAMS} streams, f32 max|err| {err_f:.3e}; u8 max "
               f"{max_lsb} LSB on {frac:.2e} of pixels; bit-equal to {STREAMS} solo K1; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {STREAMS} x solo K1 {solo_ms:.4f} ms "
+              f"{ms:.4f} ms ({gap_ms:.4f} without the device spin), plain {plain_ms:.4f} ms, {STREAMS} x solo K1 {solo_ms:.4f} ms "
               f"(u8 {STREAMS}x3x{H}x{W}, median of {RUNS})", flush=True)
         report[mode] = {"max_abs_err": max_lsb, "ms": ms, "plain_ms": plain_ms,
                         "solo_ms": solo_ms, "f32_err": err_f}
+    n_easu, n_src = _easu_work(smaps, H, W)
+    report["easu"]["bound_ms"], report["easu"]["bound_by"] = _bound(
+        img_u8.numel() * 2 + smaps.numel() * 4, _easu_ops(n_easu, n_src, 3))
+    print(f"K2 warp_batched easu: bound {report['easu']['bound_ms']:.4f} ms "
+          f"({report['easu']['bound_by']}, {n_easu} EASU outputs, {n_src} corner pixels)",
+          flush=True)
+
+    # Streams under the overflowing maps (each a little apart), EASU.
+    kinds = list(OVERFLOW_MAPS.values())
+    omaps = torch.stack([_affine_map((H, W), kinds[s % 2][0] * (1.0 + 0.01 * s),
+                                     kinds[s % 2][1] + 0.01 * s, dev) for s in range(STREAMS)])
+    paths = [_paths(lambda c, m=m: warp_kernel.warp(img_u8[0], m, block_paths=c), dev) for m in omaps]
+    assert all(over >= used // 2 for used, over in paths), f"blocks (used, over): {paths}"
+    kf = warp_kernel.warp_batched(img_f, omaps)
+    err_f = float((kf - remap_ops.remap_batched_plain(img_f, omaps, filter_mode="easu")).abs().max())
+    assert err_f <= 1e-4, f"overflowing batched f32 warp differs from plain by {err_f} > 1e-4"
+    assert torch.equal(kf, torch.stack([warp_kernel.warp(img_f[s], omaps[s]) for s in range(STREAMS)]))
+    del kf
+    ku = warp_kernel.warp_batched(img_u8, omaps)
+    max_lsb, frac = _u8_diff(ku, remap_ops.remap_batched_plain(img_u8, omaps, filter_mode="easu"))
+    assert max_lsb <= 1 and frac <= 1e-3, (
+        f"overflowing batched u8 warp: max {max_lsb} LSB on {frac:.2e} of pixels")
+    assert torch.equal(ku, torch.stack([warp_kernel.warp(img_u8[s], omaps[s]) for s in range(STREAMS)]))
+    del ku
+    print(f"K2 warp_batched easu under zoom-out / rotation maps: {sum(o for _, o in paths)} of "
+          f"{sum(u for u, _ in paths)} blocks gather from device memory; f32 max|err| "
+          f"{err_f:.3e}; u8 max {max_lsb} LSB on {frac:.2e} of pixels; bit-equal to {STREAMS} "
+          f"solo K1", flush=True)
     return report
 
 
@@ -305,12 +483,20 @@ def check_lk(dev, rng) -> dict:
     agree = float((kgood == pgood)[valid].float().mean())
     assert err <= 1e-3, f"LK flow differs from plain by {err} px > 1e-3"
     assert agree >= 0.99, f"LK tracked masks agree on {agree:.4f} < 0.99 of features"
-    ms = _median_ms(lambda: lk_kernel.lk_track(*args))
+    ms, gap_ms = _median_ms(lambda: lk_kernel.lk_track(*args)), _median_ms(
+        lambda: lk_kernel.lk_track(*args), spin=False)
     plain_ms = _median_ms(lambda: optical_flow.track_plain(p0, p1, pts, flow_s))
+    n_feat = pts.shape[0]
+    bound_ms, bound_by = _bound(
+        4 * sum(lv.numel() for lv in (*p0.levels, *p1.levels)) + 4 * 4 * n_feat + 9 * n_feat,
+        _lk_ops(n_feat, flow_s.pyramid_levels, flow_s.window_size, flow_s.iterations))
     print(f"K3 lk_track: max|flow err| {err:.3e} px over {int(both.sum())} features, masks "
-          f"agree on {agree:.4f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(3 levels of 272x480, 510 features, median of {RUNS})", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"agree on {agree:.4f}; kernel {ms:.4f} ms ({gap_ms:.4f} without the device spin), "
+          f"plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}) (3 levels of 272x480, 510 features, median of {RUNS})",
+          flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def check_lk_batched(dev, rng) -> dict:
@@ -354,10 +540,12 @@ def check_lk_batched(dev, rng) -> dict:
     err, agree = max(errs), min(agrees)
     assert err <= 1e-3, f"batched LK flow differs from plain by {err} px > 1e-3"
     assert agree >= 0.99, f"batched LK masks agree on {agree:.4f} < 0.99 of features"
-    ms = _median_ms(lambda: lk_kernel.lk_track(*args))
+    ms, gap_ms = _median_ms(lambda: lk_kernel.lk_track(*args)), _median_ms(
+        lambda: lk_kernel.lk_track(*args), spin=False)
     plain_ms = _median_ms(lambda: optical_flow.track_batched_plain(prev, nxt, pts, flow_s))
     print(f"K3 lk_track, {STREAMS} streams in one launch: max|flow err| {err:.3e} px, masks "
-          f"agree on >= {agree:.4f}; kernel {ms:.4f} ms, plain (vmap) {plain_ms:.4f} ms "
+          f"agree on >= {agree:.4f}; kernel {ms:.4f} ms ({gap_ms:.4f} without the device spin), "
+          f"plain (vmap) {plain_ms:.4f} ms "
           f"(3 levels of {STREAMS}x272x480, {STREAMS}x510 features, median of {RUNS})", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
@@ -380,13 +568,29 @@ def check_easu_scale(dev, rng) -> dict:
         err = float((got - want).abs().max())
         del got, want
         assert err <= 1e-5, f"easu_scale {h}x{w} -> {size} differs from plain by {err} > 1e-5"
-        ms = _median_ms(lambda: easu_ops.easu_scale(img, size, PixelFormat.YUV))
+        kernel = lambda: easu_ops.easu_scale(img, size, PixelFormat.YUV)  # noqa: E731
+        ms, gap_ms = _median_ms(kernel), _median_ms(kernel, spin=False)
         plain_ms = _median_ms(lambda: easu_ops.easu_scale_plain(img, size, PixelFormat.YUV))
+        # Every output but the border's nearest taps runs the EASU core.
+        if plan.rational:
+            y0, _ = easu_ops._axis_rational(size[0], plan.py, plan.qy, dev)
+            x0, _ = easu_ops._axis_rational(size[1], plan.px, plan.qx, dev)
+        else:
+            y0, _ = easu_ops._axis_fallback(h, size[0], dev)
+            x0, _ = easu_ops._axis_fallback(w, size[1], dev)
+        rows, cols = y0[(y0 >= 1) & (y0 < h - 4)], x0[(x0 >= 1) & (x0 < w - 4)]
+        n_src = (len(torch.cat([rows, rows + 1]).unique())
+                 * len(torch.cat([cols, cols + 1]).unique()))
+        bound_ms, bound_by = _bound(4 * (img.numel() + 3 * size[0] * size[1]),
+                                    _easu_ops(len(rows) * len(cols), n_src, 3))
         form = "rational" if plan.rational else "fallback"
         print(f"K5 easu_scale 3x{h}x{w} -> {size[0]}x{size[1]} ({form} {plan.py}/{plan.qy}, "
-              f"{plan.px}/{plan.qx}): max|err| {err:.3e}; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (f32, median of {RUNS})", flush=True)
-        report[size] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+              f"{plan.px}/{plan.qx}): max|err| {err:.3e}; kernel {ms:.4f} ms ({gap_ms:.4f} without "
+              f"the device spin), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) (f32, median of {RUNS})",
+              flush=True)
+        report[size] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by}
     return report
 
 
@@ -406,11 +610,15 @@ def check_rcas(dev, rng) -> dict:
     del got, want
     assert err <= 1e-6, f"rcas differs from plain by {err} > 1e-6"
     assert moved > 1e-3, f"rcas changed no pixel by more than {moved}"
-    ms = _median_ms(lambda: rcas_ops.rcas(img, 0.8))
+    ms, gap_ms = _median_ms(lambda: rcas_ops.rcas(img, 0.8)), _median_ms(
+        lambda: rcas_ops.rcas(img, 0.8), spin=False)
     plain_ms = _median_ms(lambda: rcas_ops.rcas_plain(img, 0.8))
-    print(f"K6 rcas 3x{OUT[0]}x{OUT[1]}: max|err| {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(f32, sharpness 0.8, median of {RUNS})", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    bound_ms, bound_by = _bound(4 * 2 * img.numel(), _rcas_ops(3, *OUT))
+    print(f"K6 rcas 3x{OUT[0]}x{OUT[1]}: max|err| {err:.3e}; kernel {ms:.4f} ms ({gap_ms:.4f} "
+          f"without the device spin), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}) (f32, sharpness 0.8, median of {RUNS})", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def _drive(filt, state, frames, per_frame, n=None):
@@ -707,6 +915,10 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    for r in build.resources():
+        print(f"ptxas {r['kernel']}: {r['registers']} registers, {r['smem']} B shared memory, "
+              f"{r['stack']} B stack, {r['spill_stores']} / {r['spill_loads']} B spilled "
+              f"(stores / loads)", flush=True)
 
     rng = np.random.default_rng(0)
     warp_rep = check_warp(dev, rng)
@@ -732,29 +944,24 @@ def main() -> int:
     sm = run_stream_multi(dev, clips)
     del clips
 
+    def entry(name, source, replaces, launches, rep, library_ms=None):
+        return {"name": name, "route": "cuda", "source": f"livevisionkit_tpu_torch/csrc/{source}",
+                "replaces": f"livevisionkit_tpu/ops/tpu_kernels/{replaces}", "launches": launches,
+                "max_abs_err": rep["max_abs_err"], "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+                "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"], "library_ms": library_ms}
+
+    # No single PyTorch call computes the EASU warp or upscale, LK or RCAS:
+    # library_ms is null; the bilinear warp's grid_sample time is printed
+    # above.
+    easu_2x = dict(easu_rep[OUT], max_abs_err=max(r["max_abs_err"] for r in easu_rep.values()))
     kernels = [
-        {"name": "warp", "route": "cuda", "source": "livevisionkit_tpu_torch/csrc/warp.cu",
-         "replaces": "livevisionkit_tpu/ops/tpu_kernels/warp.py:312",
-         "launches": sl["launches"]["warp"], "max_abs_err": warp_rep["easu"]["max_abs_err"],
-         "ms": warp_rep["easu"]["ms"], "plain_ms": warp_rep["easu"]["plain_ms"]},
-        {"name": "warp_batched", "route": "cuda", "source": "livevisionkit_tpu_torch/csrc/warp.cu",
-         "replaces": "livevisionkit_tpu/ops/tpu_kernels/warp.py:829",
-         "launches": ms["launches"]["warp_batched"],
-         "max_abs_err": warp_b_rep["easu"]["max_abs_err"],
-         "ms": warp_b_rep["easu"]["ms"], "plain_ms": warp_b_rep["easu"]["plain_ms"]},
-        {"name": "lk_track", "route": "cuda", "source": "livevisionkit_tpu_torch/csrc/lk.cu",
-         "replaces": "livevisionkit_tpu/ops/tpu_kernels/lk.py:255",
-         "launches": sl["launches"]["lk_track"], "max_abs_err": lk_rep["max_abs_err"],
-         "ms": lk_rep["ms"], "plain_ms": lk_rep["plain_ms"]},
-        {"name": "easu_scale", "route": "cuda", "source": "livevisionkit_tpu_torch/csrc/easu_scale.cu",
-         "replaces": "livevisionkit_tpu/ops/tpu_kernels/easu_scale.py:264",
-         "launches": ch["launches"]["easu_scale"],
-         "max_abs_err": max(r["max_abs_err"] for r in easu_rep.values()),
-         "ms": easu_rep[OUT]["ms"], "plain_ms": easu_rep[OUT]["plain_ms"]},
-        {"name": "rcas", "route": "cuda", "source": "livevisionkit_tpu_torch/csrc/rcas.cu",
-         "replaces": "livevisionkit_tpu/ops/tpu_kernels/rcas.py:108",
-         "launches": ch["launches"]["rcas"], "max_abs_err": rcas_rep["max_abs_err"],
-         "ms": rcas_rep["ms"], "plain_ms": rcas_rep["plain_ms"]},
+        entry("warp", "warp.cu", "warp.py:312", sl["launches"]["warp"], warp_rep["easu"]),
+        entry("warp_batched", "warp.cu", "warp.py:829", ms["launches"]["warp_batched"],
+              warp_b_rep["easu"]),
+        entry("lk_track", "lk.cu", "lk.py:255", sl["launches"]["lk_track"], lk_rep),
+        entry("easu_scale", "easu_scale.cu", "easu_scale.py:264", ch["launches"]["easu_scale"],
+              easu_2x),
+        entry("rcas", "rcas.cu", "rcas.py:108", ch["launches"]["rcas"], rcas_rep),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{gpu} | slice {sl['gpu_ms']:.4f} ms/frame (device), {sl['wall_ms']:.4f} ms/frame (host)"

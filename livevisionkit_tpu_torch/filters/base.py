@@ -60,7 +60,7 @@ def where_state(pred: torch.Tensor, new: Any, old: Any) -> Any:
 class VideoFilter:
     """Base class: configuration object + step function."""
 
-    def init(self, spec: FrameSpec, device: torch.device | str = "cpu", seed: int = 0) -> Any:
+    def init(self, spec: FrameSpec, device: torch.device | str = "cuda", seed: int = 0) -> Any:
         """Create the initial state for a stream of `spec` frames on `device`;
         `seed` seeds any random state (the stabilizer's RANSAC generator)."""
         return ()
@@ -106,7 +106,7 @@ class CompositeFilter(VideoFilter):
 
     filters: tuple[VideoFilter, ...]
 
-    def init(self, spec: FrameSpec, device: torch.device | str = "cpu", seed: int = 0) -> tuple:
+    def init(self, spec: FrameSpec, device: torch.device | str = "cuda", seed: int = 0) -> tuple:
         states = []
         for f in self.filters:
             states.append(f.init(spec, device=device, seed=seed))

@@ -59,7 +59,7 @@ class StabilizationFilter(VideoFilter):
     settings: StabilizationFilterSettings = field(default_factory=StabilizationFilterSettings)
     enabled: bool = True  # bypass path: maintain delay/crop only
 
-    def init(self, spec: FrameSpec, device: torch.device | str = "cpu", seed: int = 0) -> StabilizerState:
+    def init(self, spec: FrameSpec, device: torch.device | str = "cuda", seed: int = 0) -> StabilizerState:
         """Initial state on `device`; `seed` seeds the RANSAC generator."""
         if spec.has_alpha:
             raise NotImplementedError("alpha planes are not ported yet (ROADMAP slice 5)")

@@ -61,7 +61,7 @@ class WarpField:
         return tuple(self.offsets.shape[-2:])
 
     @classmethod
-    def identity(cls, field_shape: tuple[int, int], device: torch.device | str = "cpu") -> "WarpField":
+    def identity(cls, field_shape: tuple[int, int], device: torch.device | str = "cuda") -> "WarpField":
         return cls(offsets=torch.zeros((2,) + tuple(field_shape), dtype=torch.float32, device=device))
 
     @classmethod

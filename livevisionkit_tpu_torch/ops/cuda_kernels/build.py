@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,6 +25,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "liblvk_cuda.so"
+PTXAS_LOG = BUILD_DIR / "ptxas.log"  # ptxas -v of the build that made LIB_PATH
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,8 +48,8 @@ def nvcc_path() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path) -> list[Path]:
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
 def _digest(sources: list[Path]) -> str:
@@ -70,48 +72,102 @@ def _run(cmds: list[list[str]]) -> list[str]:
     return outs
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels if the library is missing or stale; return its
-    path.  The library is linked under a temporary name and renamed into
-    place, so a concurrent loader never sees a half-written file."""
-    sources = _sources()
+def build(verbose: bool = False, csrc: Path = CSRC, out_dir: Path = BUILD_DIR) -> Path:
+    """Compile the kernels of `csrc` (by default the checkout's) into
+    `out_dir` if the library there is missing or stale; return its path.
+    The library is linked under a temporary name and renamed into place, so
+    a concurrent loader never sees a half-written file.  ptxas's report of
+    each kernel's registers, shared memory and spills is kept in
+    `out_dir`/ptxas.log (`resources`) and printed when `verbose`."""
+    sources = _sources(csrc)
     digest = _digest(sources)
-    stamp = LIB_PATH.with_name(LIB_PATH.name + ".sha256")
-    if LIB_PATH.exists() and stamp.exists() and stamp.read_text() == digest:
-        return LIB_PATH
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / LIB_PATH.name
+    stamp = lib_path.with_name(lib_path.name + ".sha256")
+    if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    ptxas = ["--ptxas-options=-v"] if verbose else []
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmpdir:
         cus = [p for p in sources if p.suffix == ".cu"]
         objs = [Path(tmpdir) / (p.stem + ".o") for p in cus]
-        outs = _run([[nvcc, *NVCC_FLAGS, *ptxas, "-c", str(src), "-o", str(obj)]
+        outs = _run([[nvcc, *NVCC_FLAGS, "--ptxas-options=-v", "-c", str(src), "-o", str(obj)]
                      for src, obj in zip(cus, objs)])
-        tmp = Path(tmpdir) / LIB_PATH.name
+        tmp = Path(tmpdir) / lib_path.name
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         if verbose:
             print("".join(outs), flush=True)
-        os.replace(tmp, LIB_PATH)
+        (out_dir / PTXAS_LOG.name).write_text("".join(outs))
+        os.replace(tmp, lib_path)
     stamp.write_text(digest)
-    return LIB_PATH
+    return lib_path
+
+
+def resources(log: Path = PTXAS_LOG) -> list[dict]:
+    """Each kernel of a build, from its ptxas -v report (by default the
+    library's): its demangled name (arguments dropped), registers, static
+    shared memory, stack frame and spill bytes."""
+    text = log.read_text()
+    filt = shutil.which("cu++filt") or os.path.join(os.path.dirname(nvcc_path()), "cu++filt")
+    out, entry = [], None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            entry = {"kernel": m.group(1)}
+            out.append(entry)
+        elif entry is not None and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            entry.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+        elif entry is not None and (m := re.search(r"Used (\d+) registers", line)):
+            entry["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            entry["smem"] = int(sm.group(1)) if sm else 0
+    if out and os.path.exists(filt):
+        names = subprocess.run([filt], input="\n".join(e["kernel"] for e in out),
+                               capture_output=True, text=True, check=True).stdout.splitlines()
+        for e, name in zip(out, names):
+            e["kernel"] = _short_name(name)
+    return out
+
+
+def _short_name(demangled: str) -> str:
+    """`void <unnamed>::k<float, (int)3>(const float *, ...)` -> `k<float, 3>`."""
+    name = demangled.removeprefix("void ")
+    for ns in ("(anonymous namespace)::", "<unnamed>::"):
+        name = name.replace(ns, "")
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):  # drop the argument list
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            name = name[:i]
+            break
+    return name.replace("(int)", "")
+
+
+_p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# Each C entry point's argument types; every one returns a CUDA error code
+# but lvk_error_string.
+_WARP_ARGS = [_p, _p, _p, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _f, _i]
+_ENTRY_POINTS = {
+    "lvk_warp": _WARP_ARGS + [_p],
+    "lvk_warp_counted": _WARP_ARGS + [_p, _p],
+    "lvk_lk_track": [_p, _p, _p, _p, _p, _p, _i, _i, _p, _ll, _p, _ll, _p, _p, _i, _i, _i, _f, _p],
+    "lvk_easu_scale": [_p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _i, _p],
+    "lvk_rcas": [_p, _p, _i, _i, _i, _f, _p],
+    "lvk_error_string": [_i],
+}
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call), with every entry
-    point's argument and return types declared."""
-    lib = ctypes.CDLL(str(build()))
-    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.lvk_warp.argtypes = [p, p, p, i, ll, ll, i, i, i, i, i, i, i, i, f, i, p]
-    lib.lvk_warp.restype = i
-    lib.lvk_lk_track.argtypes = [p, p, p, p, p, p, i, i, p, ll, p, ll, p, p, i, i, i, f, p]
-    lib.lvk_lk_track.restype = i
-    lib.lvk_easu_scale.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, f, f, i, p]
-    lib.lvk_easu_scale.restype = i
-    lib.lvk_rcas.argtypes = [p, p, i, i, i, f, p]
-    lib.lvk_rcas.restype = i
-    lib.lvk_error_string.argtypes = [i]
-    lib.lvk_error_string.restype = ctypes.c_char_p
+def library(csrc: Path = CSRC, out_dir: Path = BUILD_DIR) -> ctypes.CDLL:
+    """The loaded kernel library of `csrc` (built on first call), with the
+    argument and return types of each entry point it exports declared (an
+    older version's sources may lack the newer ones)."""
+    lib = ctypes.CDLL(str(build(csrc=csrc, out_dir=out_dir)))
+    for name, args in _ENTRY_POINTS.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = args
+            fn.restype = ctypes.c_char_p if name == "lvk_error_string" else _i
     return lib
 
 

@@ -6,17 +6,18 @@ rational and fallback paths of livevisionkit_tpu/ops/easu.easu_scale.  Its
 plain version is ops/easu.easu_scale_plain, which it matches borders
 included.
 
-What bounds it on the H100: per output pixel it gathers 12 taps x C
-channels from a source that stays in L2 across neighbouring pixels and
-writes C outputs, with ~250 FLOPs of direction, kernel-shape and weight
-math.  At 1080p -> 4K f32 that is ~25 MB read and ~100 MB written (~40 us
-at 3.35 TB/s) against ~2 GFLOP (~30 us at 67 TFLOP/s f32), so memory
-traffic and the arithmetic bound it about equally.  Its design: one thread
-per output pixel computes all channels, works out its own sample position
-from the per-axis ratio (no (2, OH, OW) map, which at 4K would be 66 MB),
-and applies the EASU core shared with the warp kernel (csrc/easu.cuh).
-Hoisting the per-input-pixel direction terms into shared memory is later
-work.
+What bounds it on the H100: arithmetic.  At 1080p -> 4K f32 it reads
+~25 MB and writes ~100 MB (~37 us at 3.35 TB/s) but does ~430 f32
+operations for each of 8.3 M outputs and 27 for each of the 2.1 M source
+pixels' direction terms (~54 us at 67 TFLOP/s).  At 2x every
+source quad is the f of four outputs, which a thread per output repeated:
+its gathers, luma and direction terms.  Its design (csrc/easu_scale.cu,
+csrc/easu.cuh): a block owns a 64 x 32 output tile, places its columns and
+rows once (no (2, OH, OW) map, which at 4K would be 66 MB), stages the
+tile's source box in shared memory with each source pixel's direction
+terms computed once, and resolves every output from there; a tile whose
+box exceeds the kernel's capacity (a strong downscale) gathers from device
+memory.  One kernel per channel count, so no dead channel is carried.
 """
 
 from __future__ import annotations

@@ -167,7 +167,7 @@ def _cast_like(out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def identity_map(
-    size: tuple[int, int], dtype=torch.float32, device: torch.device | str = "cpu"
+    size: tuple[int, int], dtype=torch.float32, device: torch.device | str = "cuda"
 ) -> torch.Tensor:
     """(2, H, W) map of each pixel's own coordinates."""
     h, w = size

@@ -81,7 +81,7 @@ class MultiStreamFilter:
         self.n_streams = n_streams
         self._step = batched(lambda state, frame, drain: filt.step(state, frame, drain=drain))
 
-    def init(self, spec: FrameSpec, device: torch.device | str = "cpu", seed: int = 0) -> Any:
+    def init(self, spec: FrameSpec, device: torch.device | str = "cuda", seed: int = 0) -> Any:
         """The filter's initial state, stacked S times on a leading stream
         axis.  One RANSAC generator, seeded with `seed`, serves every
         stream."""

@@ -113,7 +113,7 @@ def stream_multi(
     filt: VideoFilter,
     readers: Sequence,
     on_output: Callable[[int, np.ndarray, float], None] | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     work_format: PixelFormat = PixelFormat.YUV,
     queue_depth: int = 15,
     inflight: int = 3,

@@ -145,7 +145,9 @@ def detect(
     return features, new_thresholds
 
 
-def initial_thresholds(settings: FeatureDetectorSettings, device=None) -> torch.Tensor:
+def initial_thresholds(
+    settings: FeatureDetectorSettings, device: torch.device | str = "cuda"
+) -> torch.Tensor:
     return torch.full(settings.region_shape, settings.fast_threshold_init,
                       dtype=torch.float32, device=device)
 

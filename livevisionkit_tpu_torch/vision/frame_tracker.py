@@ -59,7 +59,7 @@ def _check_mode(settings: FrameTrackerSettings) -> None:
         )
 
 
-def init(settings: FrameTrackerSettings, device: torch.device | str = "cpu", seed: int = 0) -> TrackerState:
+def init(settings: FrameTrackerSettings, device: torch.device | str = "cuda", seed: int = 0) -> TrackerState:
     _check_mode(settings)
     h, w = settings.detection_size
     g = settings.detector.max_features

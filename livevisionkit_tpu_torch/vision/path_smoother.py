@@ -29,7 +29,9 @@ class SmootherState:
     drift_ema: torch.Tensor  # EMA of |correction| / corrective_limit
 
 
-def init(settings: PathSmootherSettings, field_shape: tuple[int, int], device=None) -> SmootherState:
+def init(
+    settings: PathSmootherSettings, field_shape: tuple[int, int], device: torch.device | str = "cuda"
+) -> SmootherState:
     template = WarpField.identity(field_shape, device=device)
     return SmootherState(
         positions=StreamBuffer.create({"offsets": template.offsets}, settings.window),

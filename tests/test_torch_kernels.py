@@ -213,15 +213,96 @@ def test_lk_kernel_stream_axis(cuda):
         assert float((kgood[k] == pgood[k])[valid[k]].float().mean()) >= 0.99
 
 
-# (input (H, W), output (H, W)): 2x, 3/2 and fallback ratios on odd sizes
-# that are no multiple of the 32x8 block, a 4K-wide 1:2 row, and tiny frames.
+def _affine_map(size, out_size, scale, angle):
+    """(2, H', W') map taking output pixel u to scale * R(angle) (u - c') + c
+    (c, c' the centres): scale 2 is a 0.5x zoom-out."""
+    (h, w), (oh, ow) = size, out_size
+    yy, xx = torch.meshgrid(torch.arange(oh, dtype=torch.float64) - (oh - 1) / 2,
+                            torch.arange(ow, dtype=torch.float64) - (ow - 1) / 2, indexing="ij")
+    co, si = math.cos(angle) * scale, math.sin(angle) * scale
+    return torch.stack([si * xx + co * yy + (h - 1) / 2, co * xx - si * yy + (w - 1) / 2]).float()
+
+
+# Channel counts and luma rules of the EASU warp: GRAY (one plane), YUV
+# (luma = plane 0, with and without a 4th plane) and RGB (luma from three).
+WARP_FORMATS = [(1, "GRAY"), (3, "YUV"), (3, "RGB"), (4, "YUV")]
+# Maps over a 117 x 203 or 117 x 204 source onto a 101 x 187 output (no
+# multiple of the 32 x 8 block): a stabilization warp whose blocks stage
+# their source box in shared memory, and a 0.5x zoom-out and a 30-degree
+# rotation whose blocks exceed the box and gather from device memory.
+WARP_MAPS = {"stabilize": (1.02, math.radians(2.0)), "zoom_out": (2.0, 0.0),
+             "rotate30": (1.0, math.radians(30.0))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(WARP_MAPS))
+@pytest.mark.parametrize("nc_fmt", WARP_FORMATS, ids=lambda p: f"{p[0]}{p[1]}")
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("width", [203, 204])
+def test_warp_kernel_tile_paths(cuda, width, dtype, nc_fmt, kind):
+    """The EASU warp's shared-memory and device-memory block paths against
+    the plain version, K1's bounds, and S = 8 streams bit-equal to 8 solo
+    launches (the maps spread around the kind's).  A u8 source 204 wide is
+    staged by 32-bit words, one 203 wide a pixel at a time."""
+    nc, fmt = nc_fmt
+    size, out_size = (117, width), (101, 187)
+    rng = np.random.default_rng(7)
+    imgs = torch.from_numpy(rng.uniform(0.0, 1.0, size=(8, nc) + size).astype(np.float32))
+    imgs[:, :, 30:70, 50:120] = 0.9
+    imgs = imgs.to(cuda)
+    if dtype == "uint8":
+        imgs = torch.clamp(imgs * 255.0 + 0.5, 0, 255).to(torch.uint8)
+    scale, angle = WARP_MAPS[kind]
+    maps = torch.stack([_affine_map(size, out_size, scale * (1 + 0.01 * s), angle + 0.01 * s)
+                        for s in range(8)]).to(cuda)
+    pf = getattr(PixelFormat, fmt)
+    got = warp_kernel.warp_batched(imgs, maps, fill=0.0, fmt=pf)
+    paths = torch.zeros(2, dtype=torch.int32, device=cuda)  # stream 0's blocks
+    solo = torch.stack([warp_kernel.warp(imgs[s], maps[s], fill=0.0, fmt=pf,
+                                         block_paths=paths if s == 0 else None)
+                        for s in range(8)])
+    used, over = paths.tolist()
+    assert used > 0 and (over == 0 if kind == "stabilize" else over > 0), (used, over)
+    want = remap_ops.remap_batched_plain(imgs, maps, fill=0.0, filter_mode="easu", fmt=pf)
+    torch.cuda.synchronize()
+    assert torch.equal(got, solo)
+    if dtype == "uint8":
+        d = (got.int() - want.int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+    else:
+        assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_warp_kernel_u8_unaligned_frame(cuda):
+    """A u8 frame with word-sized rows whose data does not start on a word
+    is staged a pixel at a time, bit-equal to the same frame staged by
+    words."""
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.integers(0, 256, size=(3, 117, 204), dtype=np.uint8)).to(cuda)
+    shifted = torch.empty(img.numel() + 1, dtype=torch.uint8, device=cuda)[1:].view(img.shape)
+    shifted.copy_(img)
+    smap = _affine_map((117, 204), (101, 187), 1.02, math.radians(2.0)).to(cuda)
+    paths = torch.zeros(2, dtype=torch.int32, device=cuda)
+    got = warp_kernel.warp(shifted, smap, block_paths=paths)
+    assert paths.tolist()[0] > 0 and paths.tolist()[1] == 0
+    assert torch.equal(got, warp_kernel.warp(img, smap))
+
+
+# (input (H, W), output (H, W)): 2x, 3/2, 4/3 and fallback ratios on odd
+# sizes that are no multiple of the 64x16 tile, a downscale and a 0.5x
+# downscale (whose tiles gather from device memory), a 4K-wide 1:2 row, and
+# tiny frames.
 SCALE_CASES = [
     ((45, 67), (90, 134)),
     ((50, 70), (75, 105)),
+    ((48, 66), (64, 88)),
     ((37, 53), (61, 97)),
     ((41, 59), (29, 37)),
+    ((96, 130), (48, 65)),
     ((8, 1920), (8, 3840)),
     ((5, 7), (10, 14)),
+    ((2, 5), (4, 10)),
 ]
 
 

@@ -165,7 +165,7 @@ def test_path_smoother_matches_jax_over_8_steps():
     within 1e-5 over 8 steps of random motion."""
     rng = np.random.default_rng(6)
     js, ts = PathSmootherSettings(predictive_samples=2), tcfg.PathSmootherSettings(predictive_samples=2)
-    sj, st = jps.init(js, (2, 2)), tps.init(ts, (2, 2))
+    sj, st = jps.init(js, (2, 2)), tps.init(ts, (2, 2), device="cpu")
     for _ in range(8):
         m = rng.normal(0, 0.02, size=(2, 2, 2)).astype(np.float32)
         sj, cj, rj = jps.next_correction(sj, jwf.WarpField(offsets=jnp.asarray(m)), js)

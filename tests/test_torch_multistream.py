@@ -216,7 +216,7 @@ def runs():
     ft = lt.CompositeFilter((lt.StabilizationFilter(settings=_settings(tcfg)),))
     multi = streams.MultiStreamFilter(ft, S)
     sj = jax.vmap(lambda _: fj.init(lj.FrameSpec(*SIZE, 3, YUV_J)))(jnp.arange(S))
-    st = multi.init(lt.FrameSpec(*SIZE, 3, YUV_T))
+    st = multi.init(lt.FrameSpec(*SIZE, 3, YUV_T), device="cpu")
     step = jax.jit(jax.vmap(lambda s, f, d: fj.step(s, f, drain=d)))
     jout, tout, inputs, carried = [], [], [], None
     for t, tick in enumerate(_ticks()):
@@ -333,15 +333,15 @@ def _bgr_clip(rng, n_frames, shift):
     return clip
 
 
-def _driver_filter():
+def _serving_filter():
     return lt.StabilizationFilter(settings=_settings(tcfg))
 
 
 def _solo_outputs(clip):
     """The oracle: one stream through the port's solo step, BGR -> YUV ->
     BGR as the driver converts, then `delay` drain bubbles."""
-    filt = _driver_filter()
-    state = filt.init(lt.FrameSpec(*SIZE, 3, YUV_T))
+    filt = _serving_filter()
+    state = filt.init(lt.FrameSpec(*SIZE, 3, YUV_T), device="cpu")
     outs = []
     ticks = [(u8, ts, True, False) for u8, ts in clip]
     ticks += [(clip[-1][0], 0.0, False, True)] * filt.delay
@@ -379,7 +379,8 @@ def test_stream_multi_matches_solo_steps():
     n_frames = 8
     clips = [_bgr_clip(rng, n_frames, s) for s in range(S)]
     got, on_out = _collect(S)
-    stats = multistream.stream_multi(_driver_filter(), [iter(c) for c in clips], on_output=on_out)
+    stats = multistream.stream_multi(_serving_filter(), [iter(c) for c in clips], on_output=on_out,
+                                     device="cpu")
     assert stats.frames_in == stats.frames_out == S * n_frames
     assert stats.stalls == 0 and stats.batches == n_frames + PREDICTIVE
     for i, clip in enumerate(clips):
@@ -407,8 +408,8 @@ def test_stream_multi_slow_stream_does_not_stall_batch():
 
     got, on_out = _collect(2)
     stats = multistream.stream_multi(
-        _driver_filter(), [iter(clips[0]), slow_reader(clips[1], 0.3)], on_output=on_out,
-        slow_stream_timeout=0.05, inflight=0, queue_depth=1)
+        _serving_filter(), [iter(clips[0]), slow_reader(clips[1], 0.3)], on_output=on_out,
+        slow_stream_timeout=0.05, inflight=0, queue_depth=1, device="cpu")
     assert stats.frames_in == stats.frames_out == 2 * n_frames
     assert len(got[0]) == len(got[1]) == n_frames
     assert stats.stalls > 0
@@ -424,7 +425,8 @@ def test_stream_multi_uneven_stream_lengths():
     rng = np.random.default_rng(3)
     clips = [_bgr_clip(rng, 4, 0), _bgr_clip(rng, 8, 1)]
     got, on_out = _collect(2)
-    stats = multistream.stream_multi(_driver_filter(), [iter(c) for c in clips], on_output=on_out)
+    stats = multistream.stream_multi(_serving_filter(), [iter(c) for c in clips], on_output=on_out,
+                                     device="cpu")
     assert stats.frames_in == stats.frames_out == 12
     for i, n in ((0, 4), (1, 8)):
         assert [t for (_, _, t) in got[i]] == _f32_times(n)

@@ -139,7 +139,7 @@ def test_composite_filter_protocol():
     assert chain.name == jchain.name == "IdentityFilter+StabilizationFilter+ScalingFilter"
     spec = chain.output_spec(lt.FrameSpec(*SIZE, 3, lt.PixelFormat.YUV))
     assert (spec.height, spec.width, spec.channels) == (*OUT, 3)
-    state = chain.init(lt.FrameSpec(*SIZE, 3, lt.PixelFormat.YUV))
+    state = chain.init(lt.FrameSpec(*SIZE, 3, lt.PixelFormat.YUV), device="cpu")
     assert len(state) == 3 and state[0] == () and state[2] == ()
     assert state[1].frames.data["pixels"].shape[1:] == (3, *SIZE)
     frame = lt.Frame.create(torch.rand(3, *SIZE), fmt=lt.PixelFormat.YUV)
@@ -188,7 +188,7 @@ def chain_runs():
 
     cj, ct = _chain(lj, jcfg), _chain(lt, tcfg)
     sj = cj.init(lj.FrameSpec(*SIZE, 3, lj.PixelFormat.YUV))
-    st = ct.init(lt.FrameSpec(*SIZE, 3, lt.PixelFormat.YUV))
+    st = ct.init(lt.FrameSpec(*SIZE, 3, lt.PixelFormat.YUV), device="cpu")
     step = jax.jit(cj.step)
     jout, tout, carried = [], [], None
     for t, px in enumerate(clip):

@@ -70,7 +70,7 @@ def runs():
     fj = lj.StabilizationFilter(settings=_settings(jcfg))
     ft = lt.StabilizationFilter(settings=_settings(tcfg))
     sj = fj.init(lj.FrameSpec(*SIZE, 3, lj.PixelFormat.YUV))
-    st = ft.init(lt.FrameSpec(*SIZE, 3, lt.PixelFormat.YUV))
+    st = ft.init(lt.FrameSpec(*SIZE, 3, lt.PixelFormat.YUV), device="cpu")
     step = jax.jit(fj.step)
     jout, tout, carried = [], [], None
     for t, (px, valid, drain) in enumerate(ticks):
@@ -174,7 +174,7 @@ def test_bypass_only_delays(runs):
     """enabled=False keeps the delay queue and nothing else: the output at
     step t is input t - PREDICTIVE, through the u8 queue."""
     filt = lt.StabilizationFilter(settings=_settings(tcfg), enabled=False)
-    state = filt.init(lt.FrameSpec(*SIZE, 3, lt.PixelFormat.YUV))
+    state = filt.init(lt.FrameSpec(*SIZE, 3, lt.PixelFormat.YUV), device="cpu")
     clip = runs["clip"][:6]
     for t, px in enumerate(clip):
         state, out = filt.step(state, lt.Frame.create(torch.from_numpy(px), fmt=lt.PixelFormat.YUV))

@@ -1,0 +1,136 @@
+"""Time the port's EASU warp and scale kernels against other versions',
+alternated in one process on one CUDA card.
+
+    python3 tools/torch_kernels_ab.py --other NAME=DIR [--other NAME=DIR ...] [--runs 30] [--out FILE]
+
+Each DIR holds another version's `livevisionkit_tpu_torch/csrc/` sources
+(for example `git archive <commit> livevisionkit_tpu_torch/csrc` unpacked
+into a git-ignored directory); every version exports the C entry points
+`lvk_warp` and `lvk_easu_scale`.  A version is built into build/ab_NAME/
+with the package's own build (`build.library`), this checkout's kernels as
+usual.  Each case runs every version in turn, then again in reverse order,
+under two timers: CUDA-event medians of `runs` single launches behind a
+device spin (chip_smoke._median_ms, the kernels line's timer) and without
+it (the timer before the spin, whose times also hold the host's enqueue
+gap).  The cases are chip_smoke.py's inputs: the EASU warp solo (u8
+3x1080x1920) and over 8 streams, the same for the bilinear mode, and the
+EASU upscale (f32, 1080p -> 4K and 720p -> 1080p).  It also prints how far
+each version's outputs are from this checkout's.  One JSON line per case,
+and all of them to --out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (its inputs and timer)
+from livevisionkit_tpu_torch.ops import easu as easu_ops  # noqa: E402
+from livevisionkit_tpu_torch.ops.cuda_kernels import build  # noqa: E402
+
+
+def _print_resources(label: str, log: Path) -> None:
+    for r in build.resources(log):
+        if "easu" in r["kernel"]:
+            print(f"{label}: {r['kernel']}: {r['registers']} registers, {r['smem']} B static "
+                  f"shared memory, {r['spill_stores']} / {r['spill_loads']} B spilled", flush=True)
+
+
+def _warp(lib, imgs, maps, easu: bool) -> torch.Tensor:
+    """One launch of lib's warp over the (S, C, H, W) frames and (S, 2, H, W) maps, fill 0, YUV."""
+    n, c, h, w = imgs.shape
+    out = torch.empty_like(imgs)
+    status = lib.lvk_warp(imgs.data_ptr(), maps.data_ptr(), out.data_ptr(), n, imgs.stride(0),
+                          maps.stride(0), c, h, w, h, w, int(imgs.dtype == torch.uint8), int(easu),
+                          1, 0.0, 0, torch.cuda.current_stream().cuda_stream)
+    assert status == 0, f"warp launch failed: {status}"
+    return out
+
+
+def _scale(lib, img, size) -> torch.Tensor:
+    c, h, w = img.shape
+    plan = easu_ops.scale_plan((h, w), size)
+    out = torch.empty((c, *size), dtype=torch.float32, device=img.device)
+    status = lib.lvk_easu_scale(img.data_ptr(), out.data_ptr(), c, h, w, *size, int(plan.rational),
+                                plan.py, plan.qy, plan.px, plan.qx, h / size[0], w / size[1], 0,
+                                torch.cuda.current_stream().cuda_stream)
+    assert status == 0, f"easu_scale launch failed: {status}"
+    return out
+
+
+def _apart(a: torch.Tensor, b: torch.Tensor) -> str:
+    d = (a.float() - b.float()).abs()
+    return f"max {float(d.max()):.3e} on {float((d > 0).float().mean()):.2e} of outputs"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", action="append", required=True, metavar="NAME=DIR")
+    ap.add_argument("--runs", type=int, default=30)
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_kernels_ab: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    gpu = chip_smoke._gpu_line()
+    print(f"gpu: {gpu}", flush=True)
+    libs = {}
+    for spec in args.other:
+        name, _, src = spec.partition("=")
+        out_dir = ROOT / "build" / f"ab_{name}"
+        libs[name] = build.library(Path(src).resolve(), out_dir)
+        _print_resources(name, out_dir / build.PTXAS_LOG.name)
+    libs["this"] = build.library()
+    _print_resources("this", build.PTXAS_LOG)
+
+    rng = np.random.default_rng(0)
+    H, W, S = chip_smoke.H, chip_smoke.W, chip_smoke.STREAMS
+    luma = torch.from_numpy(chip_smoke._texture(H, W, rng)).to(dev)
+    base = torch.stack([luma, 0.25 + 0.5 * luma.flip(0), 0.75 - 0.5 * luma.flip(1)])
+    frames_f = torch.stack([torch.roll(base, (37 * s, 61 * s), dims=(1, 2)) for s in range(S)])
+    frames_u8 = torch.clamp(frames_f * 255.0 + 0.5, 0, 255).to(torch.uint8).contiguous()
+    sims = [(1.0 + 0.004 * s, math.radians(0.25 * (s - 3)), 6.0 * s - 20.0, 9.0 - 3.0 * s)
+            for s in range(S)]
+    maps = torch.stack([chip_smoke._similarity(*p, dev).sample_map((H, W)) for p in sims]).contiguous()
+    small = torch.from_numpy(chip_smoke._texture(720, 1280, rng)).to(dev)
+    small = torch.stack([small, 0.25 + 0.5 * small.flip(0), 0.75 - 0.5 * small.flip(1)]).contiguous()
+    cases = {
+        "K1 warp EASU u8 3x1080x1920": lambda lib: _warp(lib, frames_u8[:1], maps[:1], True),
+        f"K2 warp EASU u8 {S}x3x1080x1920": lambda lib: _warp(lib, frames_u8, maps, True),
+        "K1 warp bilinear u8 3x1080x1920": lambda lib: _warp(lib, frames_u8[:1], maps[:1], False),
+        f"K2 warp bilinear u8 {S}x3x1080x1920": lambda lib: _warp(lib, frames_u8, maps, False),
+        "K5 easu_scale f32 3x1080x1920 -> 3x2160x3840": lambda lib: _scale(
+            lib, base.contiguous(), (2160, 3840)),
+        "K5 easu_scale f32 3x720x1280 -> 3x1080x1920": lambda lib: _scale(lib, small, (H, W)),
+    }
+    results = []
+    for name, call in cases.items():
+        want = call(libs["this"])
+        apart = {k: _apart(call(lib), want) for k, lib in libs.items() if k != "this"}
+        row = {"case": name, "apart": apart, "gpu": gpu, "runs": args.runs}
+        for timer, spin in (("ms", True), ("ms_no_spin", False)):
+            times = {k: [] for k in libs}
+            for k in [*libs, *reversed(libs)]:
+                times[k].append(chip_smoke._median_ms(lambda: call(libs[k]), args.runs, spin=spin))
+            row[timer] = times
+        results.append(row)
+        print(json.dumps(row), flush=True)
+    if args.out:
+        os.makedirs(args.out.parent, exist_ok=True)
+        args.out.write_text("\n".join(json.dumps(r) for r in results) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
