@@ -6,8 +6,10 @@ Builds the hand-written kernels from csrc/ (printing each one's registers,
 shared memory and spills from ptxas), holds each against its plain
 PyTorch version on the card at the shapes of the main paths (the warp
 solo and batched over 8 streams, also under maps whose blocks exceed the
-warp's shared-memory box, LK solo and over 8 streams), then drives
-the paths over synthetic shaky 1080p clips rendered on the card: the
+warp's shared-memory box, LK solo, over 8 streams and with one level,
+which is K4, RCAS beside a clone of its frame, and an empty kernel as the
+floor of every launch's time), then drives the paths over synthetic
+shaky 1080p clips rendered on the card: the
 flagship stabilizer (`livevisionkit_tpu_torch.flagship_filter`) alone; 8
 streams of it in one batched step (`MultiStreamFilter`), alternated twice
 with the solo stabilizer; the chain stabilizer -> FSR scaler to 4K
@@ -202,20 +204,23 @@ def _similarity(scale, angle, tx, ty, dev):
     return Homography.from_similarity(f(scale), f(angle), f(tx), f(ty))
 
 
-def _kernel_modules():
+def _counters():
+    """Each kernel's launch count: its wrapper and the attribute the wrapper
+    adds one to where it launches (K4 is K3's one-level call, counted apart)."""
     from livevisionkit_tpu_torch.ops.cuda_kernels import easu_scale, lk, rcas, warp
 
-    return {"warp": warp.warp, "warp_batched": warp.warp_batched, "lk_track": lk.lk_track,
-            "easu_scale": easu_scale.easu_scale, "rcas": rcas.rcas}
+    return {"warp": (warp.warp, "launches"), "warp_batched": (warp.warp_batched, "launches"),
+            "lk_track": (lk.lk_track, "launches"), "lk_level": (lk.lk_track, "launches_one_level"),
+            "easu_scale": (easu_scale.easu_scale, "launches"), "rcas": (rcas.rcas, "launches")}
 
 
 def _reset_launches() -> None:
-    for fn in _kernel_modules().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def _launches() -> dict:
-    return {name: fn.launches for name, fn in _kernel_modules().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
 def _shaky_render(dev, rng):
@@ -451,103 +456,164 @@ def check_warp_batched(dev, rng) -> dict:
     return report
 
 
-def check_lk(dev, rng) -> dict:
-    """K3 against its plain version on a 3-level 272x480 pyramid with the
-    flagship's 510 grid features, on a shifted and rotated texture."""
-    from livevisionkit_tpu_torch.config import FeatureDetectorSettings, OpticalFlowSettings
+LK_SIZE = (272, 480)  # the flagship's detection size: K3's level 0
+
+
+def _lk_frames(dev, rng, motion):
+    """Two LK_SIZE frames over a fresh texture, the second moved by the
+    similarity `motion` (angle in degrees, dx, dy) against the first."""
     from livevisionkit_tpu_torch.ops import remap as remap_ops
-    from livevisionkit_tpu_torch.ops.cuda_kernels import lk as lk_kernel
+
+    ang, dx, dy = motion
+    tex = torch.from_numpy(_texture(400, 640, rng)).to(dev)
+    f0 = remap_ops.remap_plain(
+        tex, _similarity(1.0, 0.0, 60.0, 50.0, dev).sample_map(LK_SIZE, inverse=False), fill=0.5)
+    f1 = remap_ops.remap_plain(tex, _similarity(1.0, math.radians(ang), 60.0 + dx, 50.0 + dy,
+                                                dev).sample_map(LK_SIZE, inverse=False), fill=0.5)
+    return f0, f1
+
+
+def _lk_features(f0, f1):
+    """(prev levels, next levels, points, valid): the flagship's 3-level
+    pyramids of the pair and its 510 grid features on the first frame."""
+    from livevisionkit_tpu_torch.config import FeatureDetectorSettings, OpticalFlowSettings
     from livevisionkit_tpu_torch.vision import features, optical_flow
 
-    size = (272, 480)
-    tex = torch.from_numpy(_texture(400, 640, rng)).to(dev)
-    f0 = remap_ops.remap_plain(tex, _similarity(1.0, 0.0, 60.0, 50.0, dev).sample_map(size, inverse=False), fill=0.5)
-    f1 = remap_ops.remap_plain(
-        tex, _similarity(1.0, math.radians(0.6), 62.5, 48.8, dev).sample_map(size, inverse=False), fill=0.5)
     det = FeatureDetectorSettings()
-    feats, _ = features.detect(f0, features.initial_thresholds(det, dev), det)
+    levels = OpticalFlowSettings().pyramid_levels
+    feats, _ = features.detect(f0, features.initial_thresholds(det, f0.device), det)
     assert feats.points.shape == (510, 2)
-    flow_s = OpticalFlowSettings()
-    p0 = optical_flow.Pyramid.build(f0, flow_s.pyramid_levels)
-    p1 = optical_flow.Pyramid.build(f1, flow_s.pyramid_levels)
-    pts = feats.points.contiguous()
-    zero = torch.zeros_like(pts)
-    args = (p0.levels, p1.levels, pts, zero, flow_s.window_size, flow_s.iterations,
-            flow_s.min_eigen_threshold)
-    kflow, kgood = lk_kernel.lk_track(*args)
-    pflow, pgood = optical_flow.track_plain(p0, p1, pts, flow_s)
-    valid = feats.valid
+    return (optical_flow.Pyramid.build(f0, levels).levels,
+            optical_flow.Pyramid.build(f1, levels).levels,
+            feats.points.contiguous(), feats.valid)
+
+
+def lk_inputs(dev, rng):
+    """K3's solo inputs: a shifted and rotated texture at 272x480."""
+    return _lk_features(*_lk_frames(dev, rng, (0.6, 2.5, -1.2)))
+
+
+def lk_batched_inputs(dev, rng):
+    """K3's STREAMS-stream inputs: each stream its own texture and motion,
+    (S, H_l, W_l) levels, (S, 510, 2) points and (S, 510) valid flags."""
+    per = [_lk_features(*_lk_frames(dev, rng, (0.2 * s - 0.6, 0.7 * s - 2.0, 1.0 - 0.4 * s)))
+           for s in range(STREAMS)]
+    return ([torch.stack(lv) for lv in zip(*(p[0] for p in per))],
+            [torch.stack(lv) for lv in zip(*(p[1] for p in per))],
+            torch.stack([p[2] for p in per]), torch.stack([p[3] for p in per]))
+
+
+def _lk_bound(levels, n_feat: int, n_levels: int, n_streams: int = 1) -> tuple[float, str]:
+    """K3's bound: the pyramids' bytes read once, the points, initial flow
+    and outputs (25 B a feature), and `_lk_ops`, per stream."""
+    from livevisionkit_tpu_torch.config import OpticalFlowSettings
+
+    s = OpticalFlowSettings()
+    return _bound(4 * sum(lv.numel() for lv in levels) + 25 * n_feat * n_streams,
+                  n_streams * _lk_ops(n_feat, n_levels, s.window_size, s.iterations))
+
+
+def _lk_compare(kflow, kgood, pflow, pgood, valid, what: str) -> tuple[float, float, int]:
+    """Max flow error over the features both mark tracked and the masks'
+    agreement over the valid ones, held to 1e-3 px and 99%."""
     both = kgood & pgood & valid
-    assert int(both.sum()) >= 100, f"too few features tracked by both ({int(both.sum())})"
+    assert int(both.sum()) >= 100, f"{what}: too few features tracked by both ({int(both.sum())})"
     err = float((kflow - pflow)[both].abs().max())
     agree = float((kgood == pgood)[valid].float().mean())
-    assert err <= 1e-3, f"LK flow differs from plain by {err} px > 1e-3"
-    assert agree >= 0.99, f"LK tracked masks agree on {agree:.4f} < 0.99 of features"
-    ms, gap_ms = _median_ms(lambda: lk_kernel.lk_track(*args)), _median_ms(
-        lambda: lk_kernel.lk_track(*args), spin=False)
-    plain_ms = _median_ms(lambda: optical_flow.track_plain(p0, p1, pts, flow_s))
+    assert err <= 1e-3, f"{what}: flow differs from plain by {err} px > 1e-3"
+    assert agree >= 0.99, f"{what}: tracked masks agree on {agree:.4f} < 0.99 of features"
+    return err, agree, int(both.sum())
+
+
+def _restaged(launch, dev) -> int:
+    """Features whose search window left its staged box in `launch(count)`."""
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    launch(count)
+    return int(count.item())
+
+
+def empty_kernel_ms() -> float:
+    """An empty one-warp kernel of the library under `_median_ms`: the
+    floor under which no launch can be timed."""
+    from livevisionkit_tpu_torch.ops.cuda_kernels import build
+
+    lib = build.library()
+    return _median_ms(lambda: build.check(lib.lvk_noop(torch.cuda.current_stream().cuda_stream),
+                                          "noop"))
+
+
+def check_lk(dev, rng) -> dict:
+    """K3 against its plain version on a 3-level 272x480 pyramid with the
+    flagship's 510 grid features, on a shifted and rotated texture; then
+    K4, its n_levels = 1 call, on level 0 of the same pair against the
+    plain version on one-level pyramids.  With an empty kernel's time, the
+    floor K3 is read against."""
+    from livevisionkit_tpu_torch.config import OpticalFlowSettings
+    from livevisionkit_tpu_torch.ops.cuda_kernels import lk as lk_kernel
+    from livevisionkit_tpu_torch.vision import optical_flow
+
+    flow_s = OpticalFlowSettings()
+    prev, nxt, pts, valid = lk_inputs(dev, rng)
     n_feat = pts.shape[0]
-    bound_ms, bound_by = _bound(
-        4 * sum(lv.numel() for lv in (*p0.levels, *p1.levels)) + 4 * 4 * n_feat + 9 * n_feat,
-        _lk_ops(n_feat, flow_s.pyramid_levels, flow_s.window_size, flow_s.iterations))
-    print(f"K3 lk_track: max|flow err| {err:.3e} px over {int(both.sum())} features, masks "
-          f"agree on {agree:.4f}; kernel {ms:.4f} ms ({gap_ms:.4f} without the device spin), "
-          f"plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}) (3 levels of 272x480, 510 features, median of {RUNS})",
-          flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    zero = torch.zeros_like(pts)
+    tail = (flow_s.window_size, flow_s.iterations, flow_s.min_eigen_threshold)
+    floor_ms = empty_kernel_ms()
+    print(f"K3 floor: an empty kernel of the library takes {floor_ms:.4f} ms under the same "
+          f"timer (median of {RUNS})", flush=True)
+    report = {}
+    for name, lv in (("lk_track", len(prev)), ("lk_level", 1)):
+        p0, p1 = optical_flow.Pyramid(prev[:lv]), optical_flow.Pyramid(nxt[:lv])
+        args = (p0.levels, p1.levels, pts, zero, *tail)
+        kflow, kgood = lk_kernel.lk_track(*args)
+        pflow, pgood = optical_flow.track_plain(p0, p1, pts, flow_s)
+        what = "K3 lk_track" if lv > 1 else "K4 lk_level (K3 with n_levels = 1)"
+        err, agree, n_both = _lk_compare(kflow, kgood, pflow, pgood, valid, what)
+        restaged = _restaged(lambda c: lk_kernel.lk_track(*args, restaged=c), dev)
+        ms, gap_ms = _median_ms(lambda: lk_kernel.lk_track(*args)), _median_ms(
+            lambda: lk_kernel.lk_track(*args), spin=False)
+        plain_ms = _median_ms(lambda: optical_flow.track_plain(p0, p1, pts, flow_s))
+        bound_ms, bound_by = _lk_bound((*p0.levels, *p1.levels), n_feat, lv)
+        print(f"{what}: max|flow err| {err:.3e} px over {n_both} features, masks agree on "
+              f"{agree:.4f}; {restaged} of {n_feat} features restaged their search box; kernel "
+              f"{ms:.4f} ms ({gap_ms:.4f} without the device spin), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}) ({lv} level(s) of {LK_SIZE[0]}x{LK_SIZE[1]}, "
+              f"{n_feat} features, median of {RUNS})", flush=True)
+        report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "restaged": restaged}
+    report["floor_ms"] = floor_ms
+    return report
 
 
 def check_lk_batched(dev, rng) -> dict:
     """K3 with the stream axis: STREAMS pyramid pairs (3 levels of 272x480,
     each its own texture and motion, 510 grid features each) in one launch,
-    against the plain version under vmap; the solo bounds per stream."""
-    from livevisionkit_tpu_torch.config import FeatureDetectorSettings, OpticalFlowSettings
-    from livevisionkit_tpu_torch.ops import remap as remap_ops
+    against the plain version under vmap; its bound is STREAMS times the
+    solo one."""
+    from livevisionkit_tpu_torch.config import OpticalFlowSettings
     from livevisionkit_tpu_torch.ops.cuda_kernels import lk as lk_kernel
-    from livevisionkit_tpu_torch.vision import features, optical_flow
+    from livevisionkit_tpu_torch.vision import optical_flow
 
-    size = (272, 480)
-    det = FeatureDetectorSettings()
     flow_s = OpticalFlowSettings()
-    prev, nxt, pts, valid = [], [], [], []
-    for s in range(STREAMS):
-        tex = torch.from_numpy(_texture(400, 640, rng)).to(dev)
-        f0 = remap_ops.remap_plain(tex, _similarity(1.0, 0.0, 60.0, 50.0, dev).sample_map(size, inverse=False), fill=0.5)
-        f1 = remap_ops.remap_plain(tex, _similarity(
-            1.0, math.radians(0.2 * s - 0.6), 60.0 + 0.7 * s - 2.0, 50.0 - 0.4 * s + 1.0,
-            dev).sample_map(size, inverse=False), fill=0.5)
-        feats, _ = features.detect(f0, features.initial_thresholds(det, dev), det)
-        prev.append(optical_flow.Pyramid.build(f0, flow_s.pyramid_levels).levels)
-        nxt.append(optical_flow.Pyramid.build(f1, flow_s.pyramid_levels).levels)
-        pts.append(feats.points)
-        valid.append(feats.valid)
-    prev = [torch.stack(lv) for lv in zip(*prev)]
-    nxt = [torch.stack(lv) for lv in zip(*nxt)]
-    pts, valid = torch.stack(pts), torch.stack(valid)
-    assert pts.shape == (STREAMS, 510, 2)
+    prev, nxt, pts, valid = lk_batched_inputs(dev, rng)
     zero = torch.zeros_like(pts)
     args = (prev, nxt, pts, zero, flow_s.window_size, flow_s.iterations, flow_s.min_eigen_threshold)
     kflow, kgood = lk_kernel.lk_track(*args)
     pflow, pgood = optical_flow.track_batched_plain(prev, nxt, pts, flow_s)
-    errs, agrees = [], []
-    for s in range(STREAMS):
-        both = kgood[s] & pgood[s] & valid[s]
-        assert int(both.sum()) >= 100, f"stream {s}: too few features tracked by both"
-        errs.append(float((kflow[s] - pflow[s])[both].abs().max()))
-        agrees.append(float((kgood[s] == pgood[s])[valid[s]].float().mean()))
+    errs, agrees = zip(*(_lk_compare(kflow[s], kgood[s], pflow[s], pgood[s], valid[s],
+                                     f"batched K3, stream {s}")[:2] for s in range(STREAMS)))
     err, agree = max(errs), min(agrees)
-    assert err <= 1e-3, f"batched LK flow differs from plain by {err} px > 1e-3"
-    assert agree >= 0.99, f"batched LK masks agree on {agree:.4f} < 0.99 of features"
+    restaged = _restaged(lambda c: lk_kernel.lk_track(*args, restaged=c), dev)
     ms, gap_ms = _median_ms(lambda: lk_kernel.lk_track(*args)), _median_ms(
         lambda: lk_kernel.lk_track(*args), spin=False)
     plain_ms = _median_ms(lambda: optical_flow.track_batched_plain(prev, nxt, pts, flow_s))
+    bound_ms, bound_by = _lk_bound((*prev, *nxt), pts.shape[1], len(prev), STREAMS)
     print(f"K3 lk_track, {STREAMS} streams in one launch: max|flow err| {err:.3e} px, masks "
-          f"agree on >= {agree:.4f}; kernel {ms:.4f} ms ({gap_ms:.4f} without the device spin), "
-          f"plain (vmap) {plain_ms:.4f} ms "
+          f"agree on >= {agree:.4f}; {restaged} of {pts.shape[0] * pts.shape[1]} features "
+          f"restaged their search box; kernel {ms:.4f} ms ({gap_ms:.4f} without the device "
+          f"spin), plain (vmap) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
           f"(3 levels of {STREAMS}x272x480, {STREAMS}x510 features, median of {RUNS})", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "restaged": restaged}
 
 
 def check_easu_scale(dev, rng) -> dict:
@@ -594,15 +660,22 @@ def check_easu_scale(dev, rng) -> dict:
     return report
 
 
-def check_rcas(dev, rng) -> dict:
-    """K6 against its plain version on the chain's 3x2160x3840 f32 frame
-    (a 4K EASU upscale of a texture) at sharpness 0.8."""
+def rcas_input(dev, rng) -> torch.Tensor:
+    """The chain's 3x2160x3840 f32 frame: a 4K EASU upscale of a texture."""
     from livevisionkit_tpu_torch.ops import easu as easu_ops
-    from livevisionkit_tpu_torch.ops import rcas as rcas_ops
 
     luma = torch.from_numpy(_texture(H, W, rng)).to(dev)
     small = torch.stack([luma, 0.25 + 0.5 * luma.flip(0), 0.75 - 0.5 * luma.flip(1)]).contiguous()
-    img = easu_ops.easu_scale_plain(small, OUT).contiguous()
+    return easu_ops.easu_scale_plain(small, OUT).contiguous()
+
+
+def check_rcas(dev, rng) -> dict:
+    """K6 against its plain version on the chain's 3x2160x3840 f32 frame
+    at sharpness 0.8; beside it a `torch.clone` of the frame, which moves
+    the same bytes: the bandwidth the card reaches."""
+    from livevisionkit_tpu_torch.ops import rcas as rcas_ops
+
+    img = rcas_input(dev, rng)
     got = rcas_ops.rcas(img, 0.8)
     want = rcas_ops.rcas_plain(img, 0.8)
     err = float((got - want).abs().max())
@@ -613,12 +686,14 @@ def check_rcas(dev, rng) -> dict:
     ms, gap_ms = _median_ms(lambda: rcas_ops.rcas(img, 0.8)), _median_ms(
         lambda: rcas_ops.rcas(img, 0.8), spin=False)
     plain_ms = _median_ms(lambda: rcas_ops.rcas_plain(img, 0.8))
+    clone_ms = _median_ms(img.clone)
     bound_ms, bound_by = _bound(4 * 2 * img.numel(), _rcas_ops(3, *OUT))
     print(f"K6 rcas 3x{OUT[0]}x{OUT[1]}: max|err| {err:.3e}; kernel {ms:.4f} ms ({gap_ms:.4f} "
           f"without the device spin), plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}) (f32, sharpness 0.8, median of {RUNS})", flush=True)
+          f"bound {bound_ms:.4f} ms ({bound_by}) (f32, sharpness 0.8, median of {RUNS}); "
+          f"floor: torch.clone of the frame {clone_ms:.4f} ms", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "clone_ms": clone_ms}
 
 
 def _drive(filt, state, frames, per_frame, n=None):
@@ -679,7 +754,7 @@ def run_slice(dev, rng, profile_dir: str | None) -> dict:
     state, gpu_ms, wall_ms = _drive(filt, state, frames, keep)
     launches = _launches()
 
-    want = {"warp": n, "warp_batched": 0, "lk_track": n, "easu_scale": 0, "rcas": 0}
+    want = {"warp": n, "warp_batched": 0, "lk_track": n, "lk_level": 0, "easu_scale": 0, "rcas": 0}
     assert launches == want, f"kernel launches {launches}, want {want}"
     valid = [bool(v) for v in valids]
     assert valid == [t >= delay for t in range(n)], f"valid flags {valid}"
@@ -751,7 +826,7 @@ def run_multistream(dev, poses, clips, profile_dir: str | None) -> dict:
     state, gpu_ms, wall_ms = _drive(multi, state, (frame(t) for t in range(n)), keep, n=n)
     launches = _launches()
 
-    want = {"warp": 0, "warp_batched": n, "lk_track": n, "easu_scale": 0, "rcas": 0}
+    want = {"warp": 0, "warp_batched": n, "lk_track": n, "lk_level": 0, "easu_scale": 0, "rcas": 0}
     assert launches == want, f"kernel launches {launches}, want {want}"
     valid = torch.stack(valids).cpu().numpy()  # (ticks, streams)
     finite = torch.stack(finite).cpu().numpy()
@@ -820,8 +895,8 @@ def run_stream_multi(dev, clips) -> dict:
     assert stats.frames_in == total and stats.frames_out == total, (
         f"frames in {stats.frames_in}, out {stats.frames_out}, want {total} each")
     assert stats.stalls == 0, f"{stats.stalls} stall bubbles"
-    want = {"warp": 0, "warp_batched": stats.batches, "lk_track": stats.batches, "easu_scale": 0,
-            "rcas": 0}
+    want = {"warp": 0, "warp_batched": stats.batches, "lk_track": stats.batches, "lk_level": 0,
+            "easu_scale": 0, "rcas": 0}
     assert launches == want, f"kernel launches {launches}, want {want}"
     assert not bad, f"bad output frames {bad}"
     times = [float(np.float32(t / 30.0)) for t in range(DRIVER_FRAMES)]
@@ -868,7 +943,7 @@ def run_chain(dev, rng, profile_dir: str | None) -> dict:
     state, gpu_ms, wall_ms = _drive(chain, state, frames, keep)
     launches = _launches()
 
-    want = {"warp": n, "warp_batched": 0, "lk_track": n, "easu_scale": n, "rcas": n}
+    want = {"warp": n, "warp_batched": 0, "lk_track": n, "lk_level": 0, "easu_scale": n, "rcas": n}
     assert launches == want, f"kernel launches {launches}, want {want}"
     valid = [bool(v) for v in valids]
     assert valid == [t >= delay for t in range(n)], f"valid flags {valid}"
@@ -888,8 +963,8 @@ def run_chain(dev, rng, profile_dir: str | None) -> dict:
     _reset_launches()
     _, sc_gpu_ms, sc_wall_ms = _drive(scaler, (), frames, lambda t, st, out: None)
     sc_launches = _launches()
-    assert sc_launches == {"warp": 0, "warp_batched": 0, "lk_track": 0, "easu_scale": n,
-                           "rcas": n}, sc_launches
+    assert sc_launches == {"warp": 0, "warp_batched": 0, "lk_track": 0, "lk_level": 0,
+                           "easu_scale": n, "rcas": n}, sc_launches
     print(f"scaler alone: 1080p -> 4K EASU + RCAS 0.8, {sc_gpu_ms:.4f} ms/frame on the device, "
           f"{sc_wall_ms:.4f} ms/frame host wall clock (last {N_TIMED} of {n} frames)", flush=True)
     return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms,
@@ -958,7 +1033,11 @@ def main() -> int:
         entry("warp", "warp.cu", "warp.py:312", sl["launches"]["warp"], warp_rep["easu"]),
         entry("warp_batched", "warp.cu", "warp.py:829", ms["launches"]["warp_batched"],
               warp_b_rep["easu"]),
-        entry("lk_track", "lk.cu", "lk.py:255", sl["launches"]["lk_track"], lk_rep),
+        entry("lk_track", "lk.cu", "lk.py:255", sl["launches"]["lk_track"], lk_rep["lk_track"]),
+        entry("lk_track_x8", "lk.cu", "lk.py:255", ms["launches"]["lk_track"], lk_b_rep),
+        # K4 is K3's n_levels = 1 call: its launches over the three paths.
+        entry("lk_level", "lk.cu", "lk.py:201",
+              sum(r["launches"]["lk_level"] for r in (sl, ms, ch)), lk_rep["lk_level"]),
         entry("easu_scale", "easu_scale.cu", "easu_scale.py:264", ch["launches"]["easu_scale"],
               easu_2x),
         entry("rcas", "rcas.cu", "rcas.py:108", ch["launches"]["rcas"], rcas_rep),

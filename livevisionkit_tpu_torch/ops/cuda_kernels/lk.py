@@ -5,17 +5,20 @@ Replaces livevisionkit_tpu/ops/tpu_kernels/lk.py::lk_track (body
 (``_lk_kernel``).  Its plain version is vision/optical_flow.track_plain
 (under torch.func.vmap for a batch of streams).
 
-What bounds it on the H100: per feature and level it gathers a 13x13
-template patch and, per Gauss-Newton iteration, a 12x12 search window
-(4 taps per bilinear sample) — some 3,500 dependent 4-byte gathers per
-feature per level, with a few FLOPs each.  At 510 features that is far too
-little work to fill 132 SMs, so it is bound by gather latency and launch
-overhead, not bandwidth.  Its design: one warp per feature walks all
-levels in one launch (no per-level launches or host round trips), keeps
-the template and gradients in shared memory, and reduces with warp
-shuffles, so no block-wide barrier or atomics are needed.  The features
-of S streams go in one launch (the grid's y axis), which fills S times as
-many warps.
+What bounds it on the H100: latency.  Per feature and level it samples a
+13x13 template patch and, per Gauss-Newton iteration, an 11x11 search
+window (4 taps a bilinear sample), 15 dependent iterations over 3 levels;
+at 510 features that is a few KB a feature and far too little work to
+fill 132 SMs, so the time is the chain of round trips to memory, not
+bandwidth or arithmetic.  Its design: one warp per feature walks all
+levels in one launch; per level it stages the template's texels and a
+search box around the starting iterate in shared memory in one round
+trip, so the iterations read shared memory only, with the template and
+its gradients in registers; a window that leaves the box has the box
+staged again around it (`restaged` counts such features).  The warp's
+lanes reduce with shuffles, so no block-wide barrier is needed.  The
+features of S streams go in one launch (the grid's y axis), which fills S
+times as many warps.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ def lk_track(
     window_size: int,
     iterations: int,
     min_eigen_threshold: float,
+    restaged: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Track level-0 points through two CUDA pyramids, in one launch.
 
@@ -47,7 +51,11 @@ def lk_track(
     (N, 2) level-0 flow and the (N,) bool status (gradient-conditioned and
     in-bounds at every level).  Batched over S streams: (S, H_l, W_l)
     levels and (S, N, 2) points and flow; returns (S, N, 2) and (S, N).  A
-    batched operand may be broadcast over streams (stream stride 0)."""
+    batched operand may be broadcast over streams (stream stride 0).
+
+    `restaged`, a (1,) int32 tensor on the points' device, makes the launch
+    add to it the features whose search window left its staged box at
+    least once and was staged again."""
     n_levels = len(prev_levels)
     if n_levels != len(next_levels) or not 1 <= n_levels <= _MAX_LEVELS:
         raise ValueError(f"need 1..{_MAX_LEVELS} levels in both pyramids")
@@ -60,6 +68,9 @@ def lk_track(
             raise ValueError("LK kernel needs every tensor on one CUDA device")
         if t.dtype != torch.float32:
             raise TypeError("LK kernel takes f32 tensors")
+    if restaged is not None and not (restaged.device == dev and restaged.dtype == torch.int32
+                                     and restaged.shape == (1,)):
+        raise ValueError("restaged must be a (1,) int32 tensor on the points' device")
     batched = pts.ndim == 3
     lead = 1 if batched else 0
     s = pts.shape[0] if batched else 1
@@ -73,13 +84,39 @@ def lk_track(
         if not (blocks_contiguous(t) if batched else t.is_contiguous()):
             raise ValueError("LK kernel needs each stream's planes and point sets contiguous")
     flow = torch.empty((s, n, 2), dtype=torch.float32, device=dev)
-    good = torch.empty((s, n), dtype=torch.uint8, device=dev)
+    good = torch.empty((s, n), dtype=torch.bool, device=dev)  # the kernel writes 0 / 1 bytes
+    status = launch(build.library(), prev_levels, next_levels, pts, init_flow, flow, good,
+                    window_size, iterations, min_eigen_threshold, restaged)
+    build.check(status, "lk_track")
+    if n_levels == 1:
+        lk_track.launches_one_level += 1
+    else:
+        lk_track.launches += 1
+    if not batched:
+        flow, good = flow[0], good[0]
+    return flow, good
+
+
+# Launches of K3 (two or more levels) and of K4 (its one-level call).
+lk_track.launches = 0
+lk_track.launches_one_level = 0
+
+
+def launch(lib, prev_levels, next_levels, pts, init_flow, flow, good, window_size: int,
+           iterations: int, min_eigen_threshold: float, restaged=None) -> int:
+    """One call of `lib`'s LK entry point on tensors laid out as lk_track
+    checks them, writing the (S, N, 2) f32 `flow` and the (S, N) one-byte
+    `good`; returns the entry point's CUDA status.  `lib` may be a build of
+    an earlier version of csrc/ that exports `lvk_lk_track`, the same call
+    without the restaged count."""
+    n_levels = len(prev_levels)
+    batched = pts.ndim == 3
+    s, n = good.shape
     ptrs = ctypes.c_void_p * n_levels
     ints = ctypes.c_int * n_levels
     strides = ctypes.c_longlong * n_levels
     sstride = (lambda t: t.stride(0)) if batched else (lambda t: 0)
-    lib = build.library()
-    status = lib.lvk_lk_track(
+    args = (
         ptrs(*[t.data_ptr() for t in prev_levels]),
         ptrs(*[t.data_ptr() for t in next_levels]),
         strides(*[sstride(t) for t in prev_levels]),
@@ -87,14 +124,12 @@ def lk_track(
         ints(*[t.shape[-2] for t in prev_levels]),
         ints(*[t.shape[-1] for t in prev_levels]),
         n_levels, s, pts.data_ptr(), sstride(pts), init_flow.data_ptr(), sstride(init_flow),
-        flow.data_ptr(), good.data_ptr(), n, window_size, iterations,
-        float(min_eigen_threshold), torch.cuda.current_stream(dev).cuda_stream,
+        flow.data_ptr(), good.data_ptr(), n, window_size, iterations, float(min_eigen_threshold),
     )
-    build.check(status, "lk_track")
-    lk_track.launches += 1
-    if not batched:
-        flow, good = flow[0], good[0]
-    return flow, good.bool()
-
-
-lk_track.launches = 0
+    stream = torch.cuda.current_stream(pts.device).cuda_stream
+    if not hasattr(lib, "lvk_lk_track_counted"):
+        if restaged is not None:
+            raise ValueError("this LK build does not count restaged features")
+        return lib.lvk_lk_track(*args, stream)
+    counter = None if restaged is None else restaged.data_ptr()
+    return lib.lvk_lk_track_counted(*args, counter, stream)

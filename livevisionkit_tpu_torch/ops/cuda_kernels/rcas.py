@@ -5,12 +5,15 @@ version is ops/rcas.rcas_plain, which it matches operation for operation.
 
 What bounds it on the H100: a 5-tap cross per pixel and channel with two
 divisions, a reciprocal and ~30 other FLOPs; at 3x2160x3840 f32 that is
-~100 MB read (neighbouring threads share the cross through L1/L2) and
-~100 MB written, ~60 us at 3.35 TB/s, so memory traffic bounds it.  Its
-design: one thread per pixel reads the cross of all channels, reduces the
-lobe across channels in registers and writes every channel, so no
-(1, H, W) lobe plane ever reaches device memory; border pixels are copied
-in the same pass.
+~100 MB read and ~100 MB written, ~60 us at 3.35 TB/s, so memory traffic
+bounds it.  Its design (csrc/rcas.cu): a register-blocked vector stencil.
+A thread owns 4 adjacent pixels of a row in every channel and walks 2
+rows down that strip with the rows above, at and below in registers;
+rows move as 16-byte loads and streaming stores (4 scalar ones where the
+width is not a multiple of 4), the side neighbours come by warp shuffle.
+Behind the bytes, the issue of its IEEE divisions holds it.  The lobe is
+reduced across channels in registers, so no (1, H, W) lobe plane ever
+reaches device memory; border pixels are copied in the same pass.
 """
 
 from __future__ import annotations

@@ -328,12 +328,21 @@ def test_easu_scale_kernel_matches_plain(cuda, case, fmt):
     assert float((got2d - want2d).abs().max()) <= 1e-5
 
 
+# (C, H, W): sizes that are no multiple of the block; widths 1-7 (41 rows
+# end inside a block's second 32-row band; widths that are no multiple of
+# 4 take the scalar row path), a tall 1-column strip, 4 channels on the
+# 16-byte path, and the chain's 4K frame.
+RCAS_SHAPES = ([(3, 45, 67), (1, 33, 97), (4, 9, 40), (3, 2, 5)]
+               + [(3, 41, w) for w in range(1, 8)] + [(1, 300, 1), (4, 37, 64), (3, 2160, 3840)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 45, 67), (1, 33, 97), (4, 9, 40), (3, 2, 5)])
+@pytest.mark.parametrize("shape", RCAS_SHAPES)
 def test_rcas_kernel_matches_plain(cuda, shape):
     """The RCAS kernel against rcas_plain, atol 1e-6 (each operation is
-    rounded as in the plain version), on sizes that are no multiple of
-    the block, through the dispatch of ops/rcas.rcas."""
+    rounded as in the plain version), through the dispatch of ops/rcas.rcas,
+    for (C, H, W) and (H, W); the same frame at a 4-byte offset from a
+    16-byte boundary (the scalar row path) bit-equal to the aligned one."""
     rng = np.random.default_rng(5)
     img = torch.from_numpy(rng.uniform(0.0, 1.0, size=shape).astype(np.float32)).to(cuda)
     for sharpness in (0.2, 0.8, 1.0):
@@ -343,3 +352,142 @@ def test_rcas_kernel_matches_plain(cuda, shape):
         assert float((got - want).abs().max()) <= 1e-6
     got2d = rcas_ops.rcas(img[0].contiguous(), 0.8)
     assert float((got2d - rcas_ops.rcas_plain(img[0], 0.8)).abs().max()) <= 1e-6
+    shifted = torch.empty(img.numel() + 1, device=cuda)[1:].view(shape)
+    shifted.copy_(img)
+    assert torch.equal(rcas_kernel.rcas(shifted, 0.8), rcas_kernel.rcas(img, 0.8))
+
+
+def _wave_texture(rng, size):
+    """A smooth f32 texture: plane waves of 20-50 px wavelength in random
+    directions, so LK's basin spans several pixels at every point."""
+    h, w = size
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    tex = np.full(size, 0.5)
+    for _ in range(6):
+        k = 2.0 * math.pi / rng.uniform(20.0, 50.0)
+        a = rng.uniform(0.0, math.pi)
+        tex += 0.06 * np.sin(k * (math.cos(a) * xx + math.sin(a) * yy) + rng.uniform(0, 2 * math.pi))
+    return tex.astype(np.float32)
+
+
+def _lk_pair(dev, tex, motion, size=(96, 128)):
+    """Frames 0 and 1 of `tex` (numpy) at `size`, frame 1 moved by the
+    similarity `motion` = (angle in degrees, dx, dy)."""
+    ang, dx, dy = motion
+    t = torch.from_numpy(tex).to(dev)
+    f0 = remap_ops.remap_plain(t, _similarity(1.0, 0.0, 40.0, 40.0, dev).sample_map(size, inverse=False))
+    f1 = remap_ops.remap_plain(t, _similarity(1.0, math.radians(ang), 40.0 + dx, 40.0 + dy,
+                                              dev).sample_map(size, inverse=False))
+    return f0, f1
+
+
+def _grid_points(dev, size, step=9, inset=4.3):
+    """Points on a regular grid over the frame, sub-pixel, `inset` px in."""
+    h, w = size
+    ys, xs = np.meshgrid(np.arange(inset, h - 1, step), np.arange(inset, w - 1, step), indexing="ij")
+    return torch.from_numpy(np.stack([xs.ravel(), ys.ravel()], -1).astype(np.float32)).to(dev)
+
+
+def _lk_run(prev, nxt, pts, win, init=None):
+    """The kernel and the plain version on the same pyramids; the kernel's
+    restaged-feature count."""
+    s = OpticalFlowSettings(window_size=win)
+    init = torch.zeros_like(pts) if init is None else init
+    count = torch.zeros(1, dtype=torch.int32, device=pts.device)
+    kflow, kgood = lk_kernel.lk_track(prev, nxt, pts, init, s.window_size, s.iterations,
+                                      s.min_eigen_threshold, restaged=count)
+    pflow, pgood = optical_flow.track_plain(optical_flow.Pyramid(tuple(prev)),
+                                            optical_flow.Pyramid(tuple(nxt)), pts, s, init)
+    torch.cuda.synchronize()
+    return kflow, kgood, pflow, pgood, int(count.item())
+
+
+def _lk_agree(kflow, kgood, pflow, pgood, min_both=10):
+    """Flow within 1e-3 px on the points both mark tracked; masks agree on
+    >= 99% of the points."""
+    both = kgood & pgood
+    assert int(both.sum()) >= min_both, int(both.sum())
+    assert float((kflow - pflow)[both].abs().max()) <= 1e-3
+    assert float((kgood == pgood).float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 3])
+@pytest.mark.parametrize("win", [5, 11, 21, 31])
+def test_lk_kernel_window_sizes(cuda, win, levels):
+    """Every window-size instance of the kernel (5, 11, 21, 31 px: 1, 4,
+    16 and 32 pixels a lane) and the n_levels = 1 call (K4) against the
+    plain version on a smooth texture, grid points.  A K4 launch adds to
+    its own count, not to K3's."""
+    rng = np.random.default_rng(11)
+    f0, f1 = _lk_pair(cuda, _wave_texture(rng, (200, 260)), (0.5, 2.2, -1.4))
+    prev = optical_flow.Pyramid.build(f0, levels).levels
+    nxt = optical_flow.Pyramid.build(f1, levels).levels
+    k3, k4 = lk_kernel.lk_track.launches, lk_kernel.lk_track.launches_one_level
+    _lk_agree(*_lk_run(prev, nxt, _grid_points(cuda, f0.shape), win)[:4])
+    one = int(levels == 1)
+    assert lk_kernel.lk_track.launches == k3 + 1 - one
+    assert lk_kernel.lk_track.launches_one_level == k4 + one
+
+
+@pytest.mark.cuda
+def test_lk_kernel_restages_search_box(cuda):
+    """A one-level 8 px motion: the iterates walk out of the staged search
+    box, the kernel stages it again around them (counting those features),
+    and the flow still agrees with the plain version, which gathers every
+    window from the image.  A 21 px window keeps every feature's iterates
+    well conditioned, so the two stay within rounding of each other."""
+    rng = np.random.default_rng(12)
+    f0, f1 = _lk_pair(cuda, _wave_texture(rng, (200, 260)), (0.0, 6.5, -5.0))
+    pts = _grid_points(cuda, f0.shape, step=11, inset=14.5)
+    kflow, kgood, pflow, pgood, restaged = _lk_run((f0,), (f1,), pts, 21)
+    assert restaged > pts.shape[0] // 2, restaged
+    _lk_agree(kflow, kgood, pflow, pgood)
+    truth = torch.tensor([-6.5, 5.0], device=cuda)
+    assert float((kflow[kgood].median(dim=0).values - truth).abs().max()) < 0.01
+
+
+@pytest.mark.cuda
+def test_lk_kernel_border_features(cuda):
+    """Points on and next to the frame's edges, whose windows and boxes
+    reach past it at every level: the box's replicate-clamped texels are
+    the taps the image gives."""
+    rng = np.random.default_rng(13)
+    f0, f1 = _lk_pair(cuda, _wave_texture(rng, (200, 260)), (0.3, 1.6, 1.1))
+    h, w = f0.shape
+    edge = [0.0, 0.4, 1.5, 2.75]
+    pts = [(x, y) for x in edge + [w - 1.0 - e for e in edge] for y in np.linspace(0, h - 1, 9)]
+    pts += [(x, y) for y in edge + [h - 1.0 - e for e in edge] for x in np.linspace(0, w - 1, 9)]
+    pts = torch.tensor(pts, dtype=torch.float32, device=cuda)
+    prev = optical_flow.Pyramid.build(f0, 3).levels
+    nxt = optical_flow.Pyramid.build(f1, 3).levels
+    _lk_agree(*_lk_run(prev, nxt, pts, 11)[:4])
+
+
+@pytest.mark.cuda
+def test_lk_kernel_shared_pyramid_streams(cuda):
+    """S = 3 streams over one `prev` pyramid broadcast at stream stride 0
+    (as the vmap rule passes an unbatched operand), each with its own
+    `next` pyramid and points: per stream within 1e-3 px of the plain
+    version and bit-equal to solo launches."""
+    rng = np.random.default_rng(14)
+    tex = _wave_texture(rng, (200, 260))
+    f0, _ = _lk_pair(cuda, tex, (0.0, 0.0, 0.0))
+    nexts = [_lk_pair(cuda, tex, (0.4 * k, 1.5 - k, 0.5 * k))[1] for k in range(3)]
+    p0 = optical_flow.Pyramid.build(f0, 3).levels
+    p1s = [optical_flow.Pyramid.build(f, 3).levels for f in nexts]
+    prev = [lv[None].expand(3, -1, -1) for lv in p0]
+    nxt = [torch.stack(lv) for lv in zip(*p1s)]
+    base = _grid_points(cuda, f0.shape)
+    pts = torch.stack([base + 0.25 * k for k in range(3)])
+    s = OpticalFlowSettings()
+    args = (s.window_size, s.iterations, s.min_eigen_threshold)
+    kflow, kgood = lk_kernel.lk_track(prev, nxt, pts, torch.zeros_like(pts), *args)
+    for k in range(3):
+        sflow, sgood = lk_kernel.lk_track(p0, p1s[k], pts[k].contiguous(),
+                                          torch.zeros_like(pts[k]), *args)
+        pflow, pgood = optical_flow.track_plain(optical_flow.Pyramid(p0),
+                                                optical_flow.Pyramid(p1s[k]), pts[k], s)
+        torch.cuda.synchronize()
+        assert torch.equal(sflow, kflow[k]) and torch.equal(sgood, kgood[k])
+        _lk_agree(kflow[k], kgood[k], pflow, pgood)

@@ -1,22 +1,29 @@
-"""Time the port's EASU warp and scale kernels against other versions',
-alternated in one process on one CUDA card.
+"""Time the port's kernels against other versions', alternated in one
+process on one CUDA card.
 
-    python3 tools/torch_kernels_ab.py --other NAME=DIR [--other NAME=DIR ...] [--runs 30] [--out FILE]
+    python3 tools/torch_kernels_ab.py --other NAME=DIR [--other NAME=DIR ...] [--runs 30]
+        [--cases K3,K6] [--out FILE]
 
 Each DIR holds another version's `livevisionkit_tpu_torch/csrc/` sources
-(for example `git archive <commit> livevisionkit_tpu_torch/csrc` unpacked
-into a git-ignored directory); every version exports the C entry points
-`lvk_warp` and `lvk_easu_scale`.  A version is built into build/ab_NAME/
-with the package's own build (`build.library`), this checkout's kernels as
-usual.  Each case runs every version in turn, then again in reverse order,
-under two timers: CUDA-event medians of `runs` single launches behind a
-device spin (chip_smoke._median_ms, the kernels line's timer) and without
-it (the timer before the spin, whose times also hold the host's enqueue
-gap).  The cases are chip_smoke.py's inputs: the EASU warp solo (u8
-3x1080x1920) and over 8 streams, the same for the bilinear mode, and the
-EASU upscale (f32, 1080p -> 4K and 720p -> 1080p).  It also prints how far
-each version's outputs are from this checkout's.  One JSON line per case,
-and all of them to --out.
+(for example `git archive <commit> livevisionkit_tpu_torch/csrc`
+unpacked into a git-ignored directory); every version exports the C
+entry points `lvk_warp`, `lvk_easu_scale`, `lvk_rcas` and `lvk_lk_track`
+(or, since the restaged count, `lvk_lk_track_counted`;
+ops/cuda_kernels/lk.launch calls either). A version is built into
+build/ab_NAME/ with the package's own build (`build.library`), this
+checkout's kernels as usual. Each case runs every version in turn, then
+again in reverse order, under two timers: CUDA-event medians of `runs`
+single launches behind a device spin (chip_smoke._median_ms, the kernels
+line's timer) and without it (the timer before the spin, whose times
+also hold the host's enqueue gap). The cases are chip_smoke.py's inputs:
+the EASU warp solo (u8 3x1080x1920) and over 8 streams, the same for the
+bilinear mode, the EASU upscale (f32, 1080p -> 4K and 720p -> 1080p), LK
+solo (3 levels of 272x480, 510 features), over 8 streams and with one
+level (K4), and RCAS at 3x2160x3840; `--cases` keeps those whose name
+holds one of the given words. It also prints how far each version's
+outputs are from this checkout's, and two floors under the same timers:
+an empty kernel (this checkout's `lvk_noop`) and a `torch.clone` of the
+RCAS frame. One JSON line per case, and all of them to --out.
 """
 
 from __future__ import annotations
@@ -35,15 +42,16 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (its inputs and timer)
+from livevisionkit_tpu_torch.config import OpticalFlowSettings  # noqa: E402
 from livevisionkit_tpu_torch.ops import easu as easu_ops  # noqa: E402
 from livevisionkit_tpu_torch.ops.cuda_kernels import build  # noqa: E402
+from livevisionkit_tpu_torch.ops.cuda_kernels import lk as lk_kernel  # noqa: E402
 
 
 def _print_resources(label: str, log: Path) -> None:
     for r in build.resources(log):
-        if "easu" in r["kernel"]:
-            print(f"{label}: {r['kernel']}: {r['registers']} registers, {r['smem']} B static "
-                  f"shared memory, {r['spill_stores']} / {r['spill_loads']} B spilled", flush=True)
+        print(f"{label}: {r['kernel']}: {r['registers']} registers, {r['smem']} B static shared "
+              f"memory, {r['spill_stores']} / {r['spill_loads']} B spilled", flush=True)
 
 
 def _warp(lib, imgs, maps, easu: bool) -> torch.Tensor:
@@ -68,7 +76,33 @@ def _scale(lib, img, size) -> torch.Tensor:
     return out
 
 
-def _apart(a: torch.Tensor, b: torch.Tensor) -> str:
+def _lk(lib, prev, nxt, pts, flow0) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of lib's LK over the levels (S, H_l, W_l) or (H_l, W_l)
+    and (S, N, 2) or (N, 2) points and initial flow, with the flagship's
+    window, iterations and threshold: the flow and the status."""
+    s = OpticalFlowSettings()
+    n_streams, n = (pts.shape[0], pts.shape[1]) if pts.ndim == 3 else (1, pts.shape[0])
+    flow = torch.empty((n_streams, n, 2), device=pts.device)
+    good = torch.empty((n_streams, n), dtype=torch.bool, device=pts.device)
+    status = lk_kernel.launch(lib, prev, nxt, pts, flow0, flow, good, s.window_size,
+                              s.iterations, s.min_eigen_threshold)
+    assert status == 0, f"lk_track launch failed: {status}"
+    return flow, good
+
+
+def _rcas(lib, img) -> torch.Tensor:
+    c, h, w = img.shape
+    out = torch.empty_like(img)
+    status = lib.lvk_rcas(img.data_ptr(), out.data_ptr(), c, h, w, 0.8,
+                          torch.cuda.current_stream().cuda_stream)
+    assert status == 0, f"rcas launch failed: {status}"
+    return out
+
+
+def _apart(a, b) -> str:
+    """How far output(s) a are from b: a tensor or a tuple of tensors."""
+    if isinstance(a, tuple):
+        a, b = (torch.cat([t.flatten().float() for t in x]) for x in (a, b))
     d = (a.float() - b.float()).abs()
     return f"max {float(d.max()):.3e} on {float((d > 0).float().mean()):.2e} of outputs"
 
@@ -77,6 +111,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", action="append", required=True, metavar="NAME=DIR")
     ap.add_argument("--runs", type=int, default=30)
+    ap.add_argument("--cases", default=None, metavar="WORD,WORD",
+                    help="run only the cases whose name holds one of these words")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -114,7 +150,29 @@ def main() -> int:
             lib, base.contiguous(), (2160, 3840)),
         "K5 easu_scale f32 3x720x1280 -> 3x1080x1920": lambda lib: _scale(lib, small, (H, W)),
     }
-    results = []
+    prev, nxt, pts, _ = chip_smoke.lk_inputs(dev, rng)
+    prev_b, nxt_b, pts_b, _ = chip_smoke.lk_batched_inputs(dev, rng)
+    zero, zero_b = torch.zeros_like(pts), torch.zeros_like(pts_b)
+    frame_4k = chip_smoke.rcas_input(dev, rng)
+    cases.update({
+        "K3 lk_track 3 levels of 272x480, 510 features": lambda lib: _lk(lib, prev, nxt, pts, zero),
+        f"K3 lk_track {S} streams x 3 levels of 272x480, {S}x510 features": lambda lib: _lk(
+            lib, prev_b, nxt_b, pts_b, zero_b),
+        "K4 lk_level (K3, n_levels = 1) 272x480, 510 features": lambda lib: _lk(
+            lib, prev[:1], nxt[:1], pts, zero),
+        "K6 rcas f32 3x2160x3840": lambda lib: _rcas(lib, frame_4k),
+    })
+    if args.cases:
+        words = args.cases.split(",")
+        cases = {k: v for k, v in cases.items() if any(w in k for w in words)}
+    noop = lambda: libs["this"].lvk_noop(torch.cuda.current_stream().cuda_stream)  # noqa: E731
+    floors = {"case": "floors", "gpu": gpu, "runs": args.runs}
+    for timer, spin in (("ms", True), ("ms_no_spin", False)):
+        floors[timer] = {"empty kernel": chip_smoke._median_ms(noop, args.runs, spin=spin),
+                         "torch.clone 3x2160x3840 f32": chip_smoke._median_ms(
+                             frame_4k.clone, args.runs, spin=spin)}
+    print(json.dumps(floors), flush=True)
+    results = [floors]
     for name, call in cases.items():
         want = call(libs["this"])
         apart = {k: _apart(call(lib), want) for k, lib in libs.items() if k != "this"}
