@@ -7,26 +7,33 @@ shared memory and spills from ptxas), holds each against its plain
 PyTorch version on the card at the shapes of the main paths (the warp
 solo and batched over 8 streams, also under maps whose blocks exceed the
 warp's shared-memory box, LK solo, over 8 streams and with one level,
-which is K4, RCAS beside a clone of its frame, and an empty kernel as the
-floor of every launch's time), then drives the paths over synthetic
-shaky 1080p clips rendered on the card: the
-flagship stabilizer (`livevisionkit_tpu_torch.flagship_filter`) alone; 8
-streams of it in one batched step (`MultiStreamFilter`), alternated twice
-with the solo stabilizer; the chain stabilizer -> FSR scaler to 4K
-(`CompositeFilter` of it and `ScalingFilter`); and the multi-stream driver
-`stream_multi` over 8 in-memory 1080p BGR readers.  Each drive checks that
-its step went through its kernels once per frame (or tick) and that the
-outputs are right.  It also times the scaler alone at 1080p -> 4K.  Every
-failure raises.  The last line is a JSON object with the device; the line
-before it lists each kernel's launches, error and times, with its bound
-(the larger of its bytes over 3.35 TB/s and its f32 operations over 67
-TFLOP/s, the H100 SXM's published peaks, counted from this run's shapes
-and maps) and the time of one PyTorch call computing the same function
-where there is one (none computes EASU, LK or RCAS).  Kernel times are
-taken behind a device spin, so the host's enqueue gap is not in them; the
-text lines give each also without the spin, as timed before.  With no CUDA
-device it exits non-zero and prints no result.  `--profile DIR` also
-writes torch.profiler tables of five steady steps of each path to DIR.
+which is K4, the EASU upscale and RCAS solo and over 8 streams at the
+chain tick's 1080p -> 4K shapes, each batched launch bit-equal to 8 solo
+launches and to them at stream stride 0, RCAS beside a clone of its
+frame, and an empty kernel as the floor of every launch's time), then
+drives the paths over synthetic shaky 1080p clips rendered on the card:
+the flagship stabilizer (`livevisionkit_tpu_torch.flagship_filter`)
+alone; 8 streams of it in one batched step (`MultiStreamFilter`),
+alternated twice with the solo stabilizer; the chain stabilizer -> FSR
+scaler to 4K (`CompositeFilter` of it and `ScalingFilter`), solo and over
+8 streams; the stabilizer in mesh mode
+(`presets.stabilization_preset(model="field")`, a 16x16 mesh), solo, with
+the warp kernel checked on its dense sample map, and over 8 streams; and
+the multi-stream driver `stream_multi` over 8 in-memory 1080p BGR readers.
+Each drive checks that its step went through its kernels once per frame
+(or tick) and that the outputs are right.  It also times the scaler alone
+at 1080p -> 4K.  Every failure raises.  The last line is a JSON object
+with the device; the line before it gives the card's name and power limit
+and each path's ms per step, and the line before that lists each kernel's
+launches over every path, error and times, with its bound (the larger of
+its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, the H100
+SXM's published peaks, counted from this run's shapes and maps) and the
+time of one PyTorch call computing the same function where there is one
+(none computes EASU, LK or RCAS).  Kernel times are taken behind a device
+spin, so the host's enqueue gap is not in them; the text lines give each
+also without the spin, as timed before.  With no CUDA device it exits
+non-zero and prints no result.  `--profile DIR` also writes
+torch.profiler tables of five steady steps of each path to DIR.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ N_FRAMES, N_TIMED = 60, 40
 RUNS = 20
 STREAMS = 8  # the multi-stream paths: 8 x 1080p, the JAX package's serving config
 DRIVER_FRAMES = 30  # frames per stream through `stream_multi`
+MESH_TICKS = 30  # ticks of the 8-stream mesh phase (its step is the longest)
 
 
 def _gpu_line() -> str:
@@ -206,12 +214,20 @@ def _similarity(scale, angle, tx, ty, dev):
 
 def _counters():
     """Each kernel's launch count: its wrapper and the attribute the wrapper
-    adds one to where it launches (K4 is K3's one-level call, counted apart)."""
+    adds one to where it launches (K4 is K3's one-level call, counted apart;
+    K3's stream axis is the same wrapper, counted by the path that calls it)."""
     from livevisionkit_tpu_torch.ops.cuda_kernels import easu_scale, lk, rcas, warp
 
     return {"warp": (warp.warp, "launches"), "warp_batched": (warp.warp_batched, "launches"),
             "lk_track": (lk.lk_track, "launches"), "lk_level": (lk.lk_track, "launches_one_level"),
-            "easu_scale": (easu_scale.easu_scale, "launches"), "rcas": (rcas.rcas, "launches")}
+            "easu_scale": (easu_scale.easu_scale, "launches"),
+            "easu_scale_batched": (easu_scale.easu_scale_batched, "launches"),
+            "rcas": (rcas.rcas, "launches"), "rcas_batched": (rcas.rcas_batched, "launches")}
+
+
+def _want(**launches) -> dict:
+    """Every kernel's expected launch count: those named, the rest 0."""
+    return {name: launches.get(name, 0) for name in _counters()}
 
 
 def _reset_launches() -> None:
@@ -616,6 +632,25 @@ def check_lk_batched(dev, rng) -> dict:
             "bound_by": bound_by, "restaged": restaged}
 
 
+def _easu_scale_bound(in_size, size, dev, n_streams: int = 1) -> tuple[float, str]:
+    """K5's bound for n_streams 3-channel f32 frames of in_size scaled to
+    size: each source and output once, and the EASU operations of every
+    output but the border's nearest taps, per stream."""
+    from livevisionkit_tpu_torch.ops import easu as easu_ops
+
+    (h, w), plan = in_size, easu_ops.scale_plan(in_size, size)
+    if plan.rational:
+        y0, _ = easu_ops._axis_rational(size[0], plan.py, plan.qy, dev)
+        x0, _ = easu_ops._axis_rational(size[1], plan.px, plan.qx, dev)
+    else:
+        y0, _ = easu_ops._axis_fallback(h, size[0], dev)
+        x0, _ = easu_ops._axis_fallback(w, size[1], dev)
+    rows, cols = y0[(y0 >= 1) & (y0 < h - 4)], x0[(x0 >= 1) & (x0 < w - 4)]
+    n_src = len(torch.cat([rows, rows + 1]).unique()) * len(torch.cat([cols, cols + 1]).unique())
+    return _bound(n_streams * 4 * 3 * (h * w + size[0] * size[1]),
+                  n_streams * _easu_ops(len(rows) * len(cols), n_src, 3))
+
+
 def check_easu_scale(dev, rng) -> dict:
     """K5 against its plain version on SCALE_CASES, f32 YUV: the chain's
     1080p -> 4K (2x, the TPU kernel's case), the reference scaler's default
@@ -637,18 +672,7 @@ def check_easu_scale(dev, rng) -> dict:
         kernel = lambda: easu_ops.easu_scale(img, size, PixelFormat.YUV)  # noqa: E731
         ms, gap_ms = _median_ms(kernel), _median_ms(kernel, spin=False)
         plain_ms = _median_ms(lambda: easu_ops.easu_scale_plain(img, size, PixelFormat.YUV))
-        # Every output but the border's nearest taps runs the EASU core.
-        if plan.rational:
-            y0, _ = easu_ops._axis_rational(size[0], plan.py, plan.qy, dev)
-            x0, _ = easu_ops._axis_rational(size[1], plan.px, plan.qx, dev)
-        else:
-            y0, _ = easu_ops._axis_fallback(h, size[0], dev)
-            x0, _ = easu_ops._axis_fallback(w, size[1], dev)
-        rows, cols = y0[(y0 >= 1) & (y0 < h - 4)], x0[(x0 >= 1) & (x0 < w - 4)]
-        n_src = (len(torch.cat([rows, rows + 1]).unique())
-                 * len(torch.cat([cols, cols + 1]).unique()))
-        bound_ms, bound_by = _bound(4 * (img.numel() + 3 * size[0] * size[1]),
-                                    _easu_ops(len(rows) * len(cols), n_src, 3))
+        bound_ms, bound_by = _easu_scale_bound((h, w), size, dev)
         form = "rational" if plan.rational else "fallback"
         print(f"K5 easu_scale 3x{h}x{w} -> {size[0]}x{size[1]} ({form} {plan.py}/{plan.qy}, "
               f"{plan.px}/{plan.qx}): max|err| {err:.3e}; kernel {ms:.4f} ms ({gap_ms:.4f} without "
@@ -696,12 +720,95 @@ def check_rcas(dev, rng) -> dict:
             "bound_by": bound_by, "clone_ms": clone_ms}
 
 
+def _stream_stack(frame: torch.Tensor) -> torch.Tensor:
+    """STREAMS distinct frames from one: each rolled by its own shift."""
+    return torch.stack([torch.roll(frame, (37 * s, 61 * s), dims=(-2, -1)) for s in range(STREAMS)])
+
+
+def check_easu_scale_x8(dev, rng) -> dict:
+    """K5's stream axis at the chain tick's shape: STREAMS 3x1080x1920 f32
+    frames -> 3x2160x3840 in one launch, bit-equal to STREAMS solo launches,
+    also for one frame shared at stream stride 0, and against the plain
+    version under vmap; its bound is STREAMS times the solo one."""
+    from livevisionkit_tpu_torch.ops import easu as easu_ops
+    from livevisionkit_tpu_torch.ops.cuda_kernels import easu_scale as k5
+
+    luma = torch.from_numpy(_texture(H, W, rng)).to(dev)
+    base = torch.stack([luma, 0.25 + 0.5 * luma.flip(0), 0.75 - 0.5 * luma.flip(1)])
+    imgs = _stream_stack(base).contiguous()
+    plan = easu_ops.scale_plan((H, W), OUT)
+    got = k5.easu_scale_batched(imgs, OUT, plan)
+    solo = lambda: [k5.easu_scale(imgs[s], OUT, plan) for s in range(STREAMS)]  # noqa: E731
+    assert all(torch.equal(got[s], o) for s, o in enumerate(solo())), "K5 x8 is not bit-equal to solo K5"
+    shared = k5.easu_scale_batched(imgs[-1][None].expand(STREAMS, -1, -1, -1), OUT, plan)
+    one = k5.easu_scale(imgs[-1], OUT, plan)
+    assert all(torch.equal(shared[s], one) for s in range(STREAMS)), "K5 x8 at stride 0 differs"
+    del shared, one
+    err = max(float((got[s] - easu_ops.easu_scale_plain(imgs[s], OUT)).abs().max())
+              for s in range(STREAMS))
+    del got
+    assert err <= 1e-5, f"K5 x8 differs from plain by {err} > 1e-5"
+    kernel = lambda: k5.easu_scale_batched(imgs, OUT, plan)  # noqa: E731
+    ms, gap_ms = _median_ms(kernel), _median_ms(kernel, spin=False)
+    solo_ms = _median_ms(solo)
+    plain_ms = _median_ms(lambda: easu_ops.easu_scale_batched_plain(imgs, OUT), runs=3)
+    bound_ms, bound_by = _easu_scale_bound((H, W), OUT, dev, STREAMS)
+    print(f"K5 easu_scale x{STREAMS}: {STREAMS}x3x{H}x{W} -> {OUT[0]}x{OUT[1]} in one launch, "
+          f"bit-equal to {STREAMS} solo K5 (also at stream stride 0); max|err| {err:.3e}; kernel "
+          f"{ms:.4f} ms ({gap_ms:.4f} without the device spin), {STREAMS} x solo K5 {solo_ms:.4f} "
+          f"ms, plain (vmap) {plain_ms:.4f} ms (median of 3), bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{STREAMS} x solo) (f32, median of {RUNS})", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "solo_ms": solo_ms}
+
+
+def check_rcas_x8(dev, rng) -> dict:
+    """K6's stream axis at the chain tick's shape: STREAMS 3x2160x3840 f32
+    frames in one launch, bit-equal to STREAMS solo launches and to the
+    plain version, also for one frame shared at stream stride 0; beside it
+    a `torch.clone` of the stack (the same bytes)."""
+    from livevisionkit_tpu_torch.ops import rcas as rcas_ops
+    from livevisionkit_tpu_torch.ops.cuda_kernels import rcas as k6
+
+    imgs = _stream_stack(rcas_input(dev, rng)).contiguous()
+    got = k6.rcas_batched(imgs, 0.8)
+    solo = lambda: [k6.rcas(imgs[s], 0.8) for s in range(STREAMS)]  # noqa: E731
+    assert all(torch.equal(got[s], o) for s, o in enumerate(solo())), "K6 x8 is not bit-equal to solo K6"
+    shared = k6.rcas_batched(imgs[-1][None].expand(STREAMS, -1, -1, -1), 0.8)
+    one = k6.rcas(imgs[-1], 0.8)
+    assert all(torch.equal(shared[s], one) for s in range(STREAMS)), "K6 x8 at stride 0 differs"
+    del shared, one
+    err = max(float((got[s] - rcas_ops.rcas_plain(imgs[s], 0.8)).abs().max()) for s in range(STREAMS))
+    del got
+    assert err <= 1e-6, f"K6 x8 differs from plain by {err} > 1e-6"
+    kernel = lambda: k6.rcas_batched(imgs, 0.8)  # noqa: E731
+    ms, gap_ms = _median_ms(kernel), _median_ms(kernel, spin=False)
+    solo_ms = _median_ms(solo)
+    plain_ms = _median_ms(lambda: rcas_ops.rcas_batched_plain(imgs, 0.8))
+    clone_ms = _median_ms(imgs.clone)
+    bound_ms, bound_by = _bound(4 * 2 * imgs.numel(), STREAMS * _rcas_ops(3, *OUT))
+    print(f"K6 rcas x{STREAMS}: {STREAMS}x3x{OUT[0]}x{OUT[1]} in one launch, bit-equal to "
+          f"{STREAMS} solo K6 (also at stream stride 0); max|err| {err:.3e}; kernel {ms:.4f} ms "
+          f"({gap_ms:.4f} without the device spin), {STREAMS} x solo K6 {solo_ms:.4f} ms, plain "
+          f"(vmap) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {STREAMS} x solo) (f32, "
+          f"median of {RUNS}); floor: torch.clone of the stack {clone_ms:.4f} ms", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "solo_ms": solo_ms, "clone_ms": clone_ms}
+
+
+def _timed(n: int) -> int:
+    """Steps timed at the end of an n-step drive: the last N_TIMED of a
+    full N_FRAMES drive, the last half of a shorter one."""
+    return N_TIMED if n >= N_FRAMES else n // 2
+
+
 def _drive(filt, state, frames, per_frame, n=None):
     """Step `filt` over `frames` (n of them, by default len(frames)) with
     synchronizing calls made errors; return the state, device ms/frame
-    (CUDA events) and host ms/frame over the last N_TIMED frames.
+    (CUDA events) and host ms/frame over the last `_timed(n)` frames.
     `per_frame(t, state, out)` keeps what is checked."""
     n = len(frames) if n is None else n
+    timed = _timed(n)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     wall0 = 0.0
     # The step must never wait for the device (that is what lets it be
@@ -709,7 +816,7 @@ def _drive(filt, state, frames, per_frame, n=None):
     torch.cuda.set_sync_debug_mode("error")
     try:
         for t, fr in enumerate(frames):
-            if t == n - N_TIMED:
+            if t == n - timed:
                 start.record()
                 wall0 = time.perf_counter()
             state, out = filt.step(state, fr)
@@ -718,18 +825,19 @@ def _drive(filt, state, frames, per_frame, n=None):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - wall0) * 1e3 / N_TIMED
-    return state, start.elapsed_time(end) / N_TIMED, wall_ms
+    wall_ms = (time.perf_counter() - wall0) * 1e3 / timed
+    return state, start.elapsed_time(end) / timed, wall_ms
 
 
-def run_slice(dev, rng, profile_dir: str | None) -> dict:
-    """60 flagship 1080p frames through the stabilizer on the card."""
+def run_solo(name, filt, dev, rng, profile_dir: str | None) -> dict:
+    """60 1080p frames of a fresh shaky clip through the stabilizer `filt`
+    on the card: one warp (K1) and one LK launch (K3) a step, valid flags
+    from frame `filt.delay`, finite outputs, tracker ok on >= 90% of frames
+    and output jitter below input jitter."""
     import livevisionkit_tpu_torch as lvk
-    from livevisionkit_tpu_torch.utils import metrics
 
     poses, frames = _shaky_clip(dev, rng)
     n = len(frames)
-    filt = lvk.flagship_filter()
     delay = filt.delay  # output lag in frames (the predictive window)
     spec = lvk.FrameSpec(H, W, 3, lvk.PixelFormat.YUV)
     # One step on a throwaway state fills the per-shape caches (the resize
@@ -738,71 +846,146 @@ def run_slice(dev, rng, profile_dir: str | None) -> dict:
     state = filt.init(spec, device=dev)
     torch.cuda.synchronize()
 
-    # Per frame, only 0-d flags and the 2x2 correction are kept: holding
-    # every 1080p output would make the allocator take fresh device memory
-    # each step, which a streaming consumer never pays.
+    # Per frame, only 0-d flags and the correction are kept: holding every
+    # 1080p output would make the allocator take fresh device memory each
+    # step, which a streaming consumer never pays.
     valids, finite, corrections, stabilities = [], [], [], []
 
     def keep(t, st, out):
         assert out.pixels.shape == (3, H, W)
         valids.append(out.valid)
         finite.append(torch.isfinite(out.pixels).all())
-        corrections.append(st.correction)
+        corrections.append(st.correction.offsets)
         stabilities.append(st.stability)
 
     _reset_launches()
     state, gpu_ms, wall_ms = _drive(filt, state, frames, keep)
     launches = _launches()
 
-    want = {"warp": n, "warp_batched": 0, "lk_track": n, "lk_level": 0, "easu_scale": 0, "rcas": 0}
-    assert launches == want, f"kernel launches {launches}, want {want}"
+    want = _want(warp=n, lk_track=n)
+    assert launches == want, f"{name}: kernel launches {launches}, want {want}"
     valid = [bool(v) for v in valids]
-    assert valid == [t >= delay for t in range(n)], f"valid flags {valid}"
+    assert valid == [t >= delay for t in range(n)], f"{name}: valid flags {valid}"
     bad = [t for t, f in enumerate(finite) if not bool(f)]
-    assert not bad, f"non-finite output pixels in frames {bad}"
+    assert not bad, f"{name}: non-finite output pixels in frames {bad}"
     ok = [float(s) > 0.0 for s in stabilities[1:]]
     ok_frac = sum(ok) / len(ok)
-    assert ok_frac >= 0.9, f"tracker ok on {ok_frac:.3f} < 0.9 of frames"
-
-    # A scene point's path in the input and the output: input x_t =
-    # P_t^-1(s); the output at step t shows frame t - delay, corrected, so
-    # the point sits at H_c(x) with H_c the correction's homography.
-    s = torch.tensor([[W / 2 + 160.0, H / 2 + 160.0]], device=dev)
-    x_in, y_out = [], []
-    for t in range(delay, n):
-        x = poses[t - delay].inverse().transform(s)
-        x_in.append(x[0].cpu().numpy())
-        y_out.append(corrections[t].to_homography((H, W)).transform(x)[0].cpu().numpy())
-    j_in, j_out = metrics.jitter(np.array(x_in)), metrics.jitter(np.array(y_out))
-    assert j_out < j_in, f"output jitter {j_out:.3f} px not below input {j_in:.3f} px"
-    print(f"slice: {n} flagship 1080p frames, valid from frame {delay}, tracker ok on "
-          f"{ok_frac:.3f} of frames, jitter {j_in:.3f} -> {j_out:.3f} px, launches {launches}",
+    assert ok_frac >= 0.9, f"{name}: tracker ok on {ok_frac:.3f} < 0.9 of frames"
+    j_in, j_out = _jitter(poses, torch.stack(corrections).cpu(), delay)
+    assert j_out < j_in, f"{name}: output jitter {j_out:.3f} px not below input {j_in:.3f} px"
+    field = "x".join(map(str, corrections[0].shape[-2:]))
+    print(f"{name}: {n} 1080p frames, {field} motion field, valid from frame {delay}, tracker ok "
+          f"on {ok_frac:.3f} of frames, jitter {j_in:.3f} -> {j_out:.3f} px, launches {launches}",
           flush=True)
-    print(f"slice: {gpu_ms:.4f} ms/frame on the device (CUDA events over the last {N_TIMED} "
+    print(f"{name}: {gpu_ms:.4f} ms/frame on the device (CUDA events over the last {N_TIMED} "
           f"frames), {wall_ms:.4f} ms/frame host wall clock", flush=True)
     if profile_dir:
-        _profile(filt.step, state, frames, os.path.join(profile_dir, "slice"))
+        _profile(filt.step, state, frames, os.path.join(profile_dir, name))
     return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms,
-            "jitter_in": j_in, "jitter_out": j_out}
+            "jitter_in": j_in, "jitter_out": j_out, "state": state, "frames": frames}
 
 
-def run_multistream(dev, poses, clips, profile_dir: str | None) -> dict:
-    """STREAMS flagship 1080p streams, each its own shaky clip (u8 on the
-    card), through `MultiStreamFilter.step` for 60 ticks: one batched warp
-    and one LK launch a tick, no solo warp, no per-stream fallback, no host
-    sync inside the step."""
+def run_slice(dev, rng, profile_dir: str | None) -> dict:
+    """The flagship stabilizer (homography mode, a 2x2 field)."""
     import livevisionkit_tpu_torch as lvk
-    from livevisionkit_tpu_torch.models.homography import Homography
+
+    rep = run_solo("slice", lvk.flagship_filter(), dev, rng, profile_dir)
+    del rep["state"], rep["frames"]
+    return rep
+
+
+def run_mesh(dev, rng, profile_dir: str | None) -> dict:
+    """The stabilizer in mesh mode, `stabilization_preset(model="field")`
+    (the JAX package's `1080p_mesh_stabilization`, tools/bench_matrix.py:
+    95-99): a 16x16 mesh solved by CG over 272x480 detection, 17x30 grid,
+    256 hypotheses, a 10-frame window and the EASU warp through K1 on the
+    mesh's dense (2, 1080, 1920) sample map.  Then K1 on the last step's
+    dense map against its plain version, with its device-memory tiles."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.ops import remap as remap_ops
+    from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
+    from livevisionkit_tpu_torch.presets import stabilization_preset
+
+    filt = lvk.StabilizationFilter(settings=stabilization_preset(model="field"))
+    assert tuple(filt.settings.tracker.motion_resolution) == (16, 16)
+    rep = run_solo("mesh", filt, dev, rng, profile_dir)
+    state, frames = rep.pop("state"), rep.pop("frames")
+    smap = state.correction.sample_map((H, W)).contiguous()
+    img_f = frames[-1].pixels.contiguous()
+    img_u8 = torch.clamp(img_f * 255.0 + 0.5, 0, 255).to(torch.uint8)
+    used, over = _paths(lambda c: warp_kernel.warp(img_u8, smap, block_paths=c), dev)
+    err_f = float((warp_kernel.warp(img_f, smap) - remap_ops.remap_plain(
+        img_f, smap, filter_mode="easu")).abs().max())
+    assert err_f <= 1e-4, f"mesh map: f32 warp differs from plain by {err_f} > 1e-4"
+    max_lsb, frac = _u8_diff(warp_kernel.warp(img_u8, smap),
+                             remap_ops.remap_plain(img_u8, smap, filter_mode="easu"))
+    assert max_lsb <= 1 and frac <= 1e-3, (
+        f"mesh map: u8 warp max {max_lsb} LSB on {frac:.2e} of pixels (bound 1 LSB on 1e-3)")
+    ms = _median_ms(lambda: warp_kernel.warp(img_u8, smap))
+    span = float((smap - remap_ops.identity_map((H, W), device=dev)).abs().max())
+    print(f"K1 warp easu on the mesh's dense map (|map - identity| <= {span:.2f} px): {over} of "
+          f"{used} blocks gather from device memory; f32 max|err| {err_f:.3e}; u8 max {max_lsb} "
+          f"LSB on {frac:.2e} of pixels; kernel {ms:.4f} ms (u8)", flush=True)
+    rep.update(k1_over=over, k1_used=used, k1_ms=ms, k1_err=err_f)
+    return rep
+
+
+def _point_out(offsets: torch.Tensor, x: np.ndarray) -> np.ndarray:
+    """Where a correction field (normalized (2, hm, wm) offsets, on the
+    CPU) puts the (x, y) point x of the delayed frame: a 2x2 field by its
+    exact homography, a mesh to first order, x - o(x) * (size - 1) with o
+    read bilinearly in the grid (as tools/oracle_pipeline.py reads it)."""
     from livevisionkit_tpu_torch.models.warp_field import WarpField
-    from livevisionkit_tpu_torch.parallel.streams import MultiStreamFilter
+
+    if tuple(offsets.shape[-2:]) == (2, 2):
+        pt = torch.from_numpy(np.asarray(x, np.float32)[None])
+        return WarpField(offsets=offsets).to_homography((H, W)).transform(pt)[0].numpy()
+    c = offsets.numpy()
+    gh, gw = c.shape[1:]
+    fy = float(np.clip(x[1] / (H - 1), 0.0, 1.0)) * (gh - 1)
+    fx = float(np.clip(x[0] / (W - 1), 0.0, 1.0)) * (gw - 1)
+    y0, x0 = min(int(fy), gh - 2), min(int(fx), gw - 2)
+    wy, wx = fy - y0, fx - x0
+    v = (c[:, y0, x0] * (1 - wy) * (1 - wx) + c[:, y0, x0 + 1] * (1 - wy) * wx
+         + c[:, y0 + 1, x0] * wy * (1 - wx) + c[:, y0 + 1, x0 + 1] * wy * wx)
+    return np.asarray(x) - np.array([v[1] * (W - 1), v[0] * (H - 1)])
+
+
+def _jitter(poses, corrections, delay: int) -> tuple[float, float]:
+    """Jitter of a scene point's path in the input and in the output: input
+    x_t = P_t^-1(s); the output at step t shows frame t - delay, corrected
+    (`_point_out`).  `poses` are one stream's and `corrections` its (2, hm,
+    wm) correction offsets per step, on the CPU."""
+    from livevisionkit_tpu_torch.models.homography import Homography
     from livevisionkit_tpu_torch.utils import metrics
 
-    n = N_FRAMES
-    filt = lvk.flagship_filter()
+    s_pt = torch.tensor([[W / 2 + 160.0, H / 2 + 160.0]])
+    x_in, y_out = [], []
+    for t in range(delay, len(corrections)):
+        x = Homography(m=poses[t - delay].m.cpu()).inverse().transform(s_pt)[0].numpy()
+        x_in.append(x)
+        y_out.append(_point_out(corrections[t], x))
+    return metrics.jitter(np.array(x_in)), metrics.jitter(np.array(y_out))
+
+
+def run_streams(name, filt, dev, poses, clips, n, want, profile_dir: str | None) -> dict:
+    """STREAMS 1080p streams, each its own shaky clip (u8 on the card),
+    through `MultiStreamFilter(filt, STREAMS).step` for n ticks with
+    synchronizing calls made errors: `want(n)` launches of each kernel
+    (one batched launch each a tick), no solo launch, no per-stream
+    fallback.  Per stream: valid flags from tick `filt.delay`, finite
+    outputs of the filter's output size, tracker ok on >= 90% of ticks and
+    output jitter below input jitter.  `filt` is a stabilizer, or a chain
+    whose first stage is one."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.parallel.streams import MultiStreamFilter
+
     multi = MultiStreamFilter(filt, STREAMS)
     delay = filt.delay
     spec = lvk.FrameSpec(H, W, 3, lvk.PixelFormat.YUV)
+    out_spec = filt.output_spec(spec)
     live = torch.ones(STREAMS, dtype=torch.bool, device=dev)
+    stab = (lambda st: st[0]) if isinstance(filt, lvk.CompositeFilter) else (lambda st: st)
 
     def frame(t):
         return lvk.Frame(pixels=clips[:, t].to(torch.float32) * (1.0 / 255.0),
@@ -813,51 +996,87 @@ def run_multistream(dev, poses, clips, profile_dir: str | None) -> dict:
     state = multi.init(spec, device=dev)
     torch.cuda.synchronize()
 
-    valids, finite, corrections, stabilities = [], [], [], []
+    valids, finite, corrections, stabilities, lo, hi = [], [], [], [], [], []
 
     def keep(t, st, out):
-        assert out.pixels.shape == (STREAMS, 3, H, W)
+        assert out.pixels.shape == (STREAMS, 3, out_spec.height, out_spec.width)
         valids.append(out.valid)
         finite.append(torch.isfinite(out.pixels).flatten(1).all(dim=1))
-        corrections.append(st.correction.offsets)
-        stabilities.append(st.stability)
+        lo.append(out.pixels.amin())
+        hi.append(out.pixels.amax())
+        corrections.append(stab(st).correction.offsets)
+        stabilities.append(stab(st).stability)
 
     _reset_launches()
     state, gpu_ms, wall_ms = _drive(multi, state, (frame(t) for t in range(n)), keep, n=n)
     launches = _launches()
 
-    want = {"warp": 0, "warp_batched": n, "lk_track": n, "lk_level": 0, "easu_scale": 0, "rcas": 0}
-    assert launches == want, f"kernel launches {launches}, want {want}"
+    assert launches == want, f"{name}: kernel launches {launches}, want {want}"
     valid = torch.stack(valids).cpu().numpy()  # (ticks, streams)
     finite = torch.stack(finite).cpu().numpy()
     ok = (torch.stack(stabilities)[1:] > 0.0).float().mean(dim=0).cpu().numpy()
     corr = torch.stack(corrections).cpu()
-    s_pt = torch.tensor([[W / 2 + 160.0, H / 2 + 160.0]])
+    lo_all, hi_all = float(torch.stack(lo).min()), float(torch.stack(hi).max())
+    # The warp fills with 0, EASU de-rings into its taps and RCAS keeps
+    # [0, 1] input inside [0, 1].
+    assert -1e-5 <= lo_all and hi_all <= 1.0 + 1e-5, f"{name}: outputs span [{lo_all}, {hi_all}]"
     jitter = []
     for s in range(STREAMS):
-        assert list(valid[:, s]) == [t >= delay for t in range(n)], f"stream {s} valid {valid[:, s]}"
-        assert finite[:, s].all(), f"stream {s}: non-finite output pixels"
-        assert ok[s] >= 0.9, f"stream {s}: tracker ok on {ok[s]:.3f} < 0.9 of frames"
-        x_in, y_out = [], []
-        for t in range(delay, n):
-            x = Homography(m=poses[s][t - delay].m.cpu()).inverse().transform(s_pt)
-            x_in.append(x[0].numpy())
-            y_out.append(WarpField(offsets=corr[t, s]).to_homography((H, W)).transform(x)[0].numpy())
-        j_in, j_out = metrics.jitter(np.array(x_in)), metrics.jitter(np.array(y_out))
-        assert j_out < j_in, f"stream {s}: output jitter {j_out:.3f} px not below input {j_in:.3f}"
+        assert list(valid[:, s]) == [t >= delay for t in range(n)], f"{name}: stream {s} valid {valid[:, s]}"
+        assert finite[:, s].all(), f"{name}: stream {s}: non-finite output pixels"
+        assert ok[s] >= 0.9, f"{name}: stream {s}: tracker ok on {ok[s]:.3f} < 0.9 of frames"
+        j_in, j_out = _jitter(poses[s], corr[:, s], delay)
+        assert j_out < j_in, f"{name}: stream {s}: output jitter {j_out:.3f} px not below input {j_in:.3f}"
         jitter.append((j_in, j_out))
     tick_ms = max(gpu_ms, wall_ms)
-    print(f"multistream: {STREAMS} x {n} flagship 1080p frames in {n} batched ticks, valid from "
+    print(f"{name}: {STREAMS} x {n} 1080p frames in {n} batched ticks, valid from "
           f"tick {delay}, tracker ok on >= {ok.min():.3f} of frames per stream, jitter "
-          + ", ".join(f"{a:.2f}->{b:.2f}" for a, b in jitter) + f" px, launches {launches}",
+          + ", ".join(f"{a:.2f}->{b:.2f}" for a, b in jitter) + f" px, outputs "
+          f"{out_spec.height}x{out_spec.width} in [{lo_all:.6f}, {hi_all:.6f}], launches {launches}",
           flush=True)
-    print(f"multistream: {gpu_ms:.4f} ms/tick on the device, {wall_ms:.4f} ms/tick host wall "
-          f"clock (last {N_TIMED} ticks); {gpu_ms / STREAMS:.4f} / {wall_ms / STREAMS:.4f} ms per "
+    print(f"{name}: {gpu_ms:.4f} ms/tick on the device, {wall_ms:.4f} ms/tick host wall "
+          f"clock (last {_timed(n)} ticks); {gpu_ms / STREAMS:.4f} / {wall_ms / STREAMS:.4f} ms per "
           f"stream-frame; {1e3 * STREAMS / tick_ms:.1f} frames/s aggregate", flush=True)
     if profile_dir:
-        _profile(multi.step, state, [frame(t) for t in range(5)],
-                 os.path.join(profile_dir, "multistream"))
+        _profile(multi.step, state, [frame(t) for t in range(5)], os.path.join(profile_dir, name))
     return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms, "jitter": jitter}
+
+
+def run_multistream(dev, poses, clips, profile_dir: str | None) -> dict:
+    """STREAMS flagship streams for N_FRAMES ticks: one batched warp (K2)
+    and one LK launch (K3) a tick."""
+    import livevisionkit_tpu_torch as lvk
+
+    n = N_FRAMES
+    return run_streams("multistream", lvk.flagship_filter(), dev, poses, clips, n,
+                       _want(warp_batched=n, lk_track=n), profile_dir)
+
+
+def run_chain_multistream(dev, poses, clips, profile_dir: str | None) -> dict:
+    """STREAMS flagship streams, each through the stabilizer -> EASU 4K +
+    RCAS 0.8 chain, for N_FRAMES ticks: one launch each of K2, K3, K5 and K6
+    a tick, the scaler's kernels on their stream axis."""
+    import livevisionkit_tpu_torch as lvk
+
+    n = N_FRAMES
+    chain = lvk.CompositeFilter((lvk.flagship_filter(), lvk.ScalingFilter(
+        lvk.ScalingFilterSettings(output_size=OUT, sharpness=0.8))))
+    return run_streams("chain_multistream", chain, dev, poses, clips, n,
+                       _want(warp_batched=n, lk_track=n, easu_scale_batched=n, rcas_batched=n),
+                       profile_dir)
+
+
+def run_mesh_multistream(dev, poses, clips, profile_dir: str | None) -> dict:
+    """STREAMS streams through the mesh stabilizer
+    (`stabilization_preset(model="field")`) for MESH_TICKS ticks: one K2
+    launch (on the meshes' dense maps) and one K3 launch a tick."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.presets import stabilization_preset
+
+    n = MESH_TICKS
+    filt = lvk.StabilizationFilter(settings=stabilization_preset(model="field"))
+    return run_streams("mesh_multistream", filt, dev, poses, clips, n,
+                       _want(warp_batched=n, lk_track=n), profile_dir)
 
 
 def run_stream_multi(dev, clips) -> dict:
@@ -895,8 +1114,7 @@ def run_stream_multi(dev, clips) -> dict:
     assert stats.frames_in == total and stats.frames_out == total, (
         f"frames in {stats.frames_in}, out {stats.frames_out}, want {total} each")
     assert stats.stalls == 0, f"{stats.stalls} stall bubbles"
-    want = {"warp": 0, "warp_batched": stats.batches, "lk_track": stats.batches, "lk_level": 0,
-            "easu_scale": 0, "rcas": 0}
+    want = _want(warp_batched=stats.batches, lk_track=stats.batches)
     assert launches == want, f"kernel launches {launches}, want {want}"
     assert not bad, f"bad output frames {bad}"
     times = [float(np.float32(t / 30.0)) for t in range(DRIVER_FRAMES)]
@@ -943,7 +1161,7 @@ def run_chain(dev, rng, profile_dir: str | None) -> dict:
     state, gpu_ms, wall_ms = _drive(chain, state, frames, keep)
     launches = _launches()
 
-    want = {"warp": n, "warp_batched": 0, "lk_track": n, "lk_level": 0, "easu_scale": n, "rcas": n}
+    want = _want(warp=n, lk_track=n, easu_scale=n, rcas=n)
     assert launches == want, f"kernel launches {launches}, want {want}"
     valid = [bool(v) for v in valids]
     assert valid == [t >= delay for t in range(n)], f"valid flags {valid}"
@@ -963,12 +1181,11 @@ def run_chain(dev, rng, profile_dir: str | None) -> dict:
     _reset_launches()
     _, sc_gpu_ms, sc_wall_ms = _drive(scaler, (), frames, lambda t, st, out: None)
     sc_launches = _launches()
-    assert sc_launches == {"warp": 0, "warp_batched": 0, "lk_track": 0, "lk_level": 0,
-                           "easu_scale": n, "rcas": n}, sc_launches
+    assert sc_launches == _want(easu_scale=n, rcas=n), sc_launches
     print(f"scaler alone: 1080p -> 4K EASU + RCAS 0.8, {sc_gpu_ms:.4f} ms/frame on the device, "
           f"{sc_wall_ms:.4f} ms/frame host wall clock (last {N_TIMED} of {n} frames)", flush=True)
     return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms,
-            "scaler_gpu_ms": sc_gpu_ms, "scaler_wall_ms": sc_wall_ms}
+            "scaler_gpu_ms": sc_gpu_ms, "scaler_wall_ms": sc_wall_ms, "scaler_launches": sc_launches}
 
 
 def main() -> int:
@@ -1001,7 +1218,9 @@ def main() -> int:
     lk_rep = check_lk(dev, rng)
     lk_b_rep = check_lk_batched(dev, rng)
     easu_rep = check_easu_scale(dev, rng)
+    easu_b_rep = check_easu_scale_x8(dev, rng)
     rcas_rep = check_rcas(dev, rng)
+    rcas_b_rep = check_rcas_x8(dev, rng)
     poses, clips = _shaky_clips_u8(dev, rng)
     # The solo step and the 8-stream tick alternate, since the host's pace
     # wanders between phases of one process.
@@ -1016,6 +1235,9 @@ def main() -> int:
               f"(device / host)", flush=True)
     sl, ms = pairs[0]
     ch = run_chain(dev, rng, args.profile)
+    chx = run_chain_multistream(dev, poses, clips, args.profile)
+    me = run_mesh(dev, rng, args.profile)
+    mex = run_mesh_multistream(dev, poses, clips, args.profile)
     sm = run_stream_multi(dev, clips)
     del clips
 
@@ -1025,29 +1247,41 @@ def main() -> int:
                 "max_abs_err": rep["max_abs_err"], "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                 "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"], "library_ms": library_ms}
 
-    # No single PyTorch call computes the EASU warp or upscale, LK or RCAS:
-    # library_ms is null; the bilinear warp's grid_sample time is printed
-    # above.
+    def launched(kernel, *paths):
+        return sum(r["launches"][kernel] for r in paths)
+
+    # Launches: the kernel's count over every path that launches it (the
+    # scaler alone is part of the chain's report).  No single PyTorch call
+    # computes the EASU warp or upscale, LK or RCAS: library_ms is null; the
+    # bilinear warp's grid_sample time is printed above.
+    paths = (sl, ms, ch, chx, me, mex)
     easu_2x = dict(easu_rep[OUT], max_abs_err=max(r["max_abs_err"] for r in easu_rep.values()))
     kernels = [
-        entry("warp", "warp.cu", "warp.py:312", sl["launches"]["warp"], warp_rep["easu"]),
-        entry("warp_batched", "warp.cu", "warp.py:829", ms["launches"]["warp_batched"],
+        entry("warp", "warp.cu", "warp.py:312", launched("warp", *paths), warp_rep["easu"]),
+        entry("warp_batched", "warp.cu", "warp.py:829", launched("warp_batched", *paths),
               warp_b_rep["easu"]),
-        entry("lk_track", "lk.cu", "lk.py:255", sl["launches"]["lk_track"], lk_rep["lk_track"]),
-        entry("lk_track_x8", "lk.cu", "lk.py:255", ms["launches"]["lk_track"], lk_b_rep),
-        # K4 is K3's n_levels = 1 call: its launches over the three paths.
-        entry("lk_level", "lk.cu", "lk.py:201",
-              sum(r["launches"]["lk_level"] for r in (sl, ms, ch)), lk_rep["lk_level"]),
-        entry("easu_scale", "easu_scale.cu", "easu_scale.py:264", ch["launches"]["easu_scale"],
-              easu_2x),
-        entry("rcas", "rcas.cu", "rcas.py:108", ch["launches"]["rcas"], rcas_rep),
+        entry("lk_track", "lk.cu", "lk.py:255", launched("lk_track", sl, ch, me), lk_rep["lk_track"]),
+        entry("lk_track_x8", "lk.cu", "lk.py:255", launched("lk_track", ms, chx, mex), lk_b_rep),
+        # K4 is K3's n_levels = 1 call.
+        entry("lk_level", "lk.cu", "lk.py:201", launched("lk_level", *paths), lk_rep["lk_level"]),
+        entry("easu_scale", "easu_scale.cu", "easu_scale.py:264",
+              launched("easu_scale", *paths) + ch["scaler_launches"]["easu_scale"], easu_2x),
+        entry("easu_scale_x8", "easu_scale.cu", "easu_scale.py:264",
+              launched("easu_scale_batched", *paths), easu_b_rep),
+        entry("rcas", "rcas.cu", "rcas.py:108",
+              launched("rcas", *paths) + ch["scaler_launches"]["rcas"], rcas_rep),
+        entry("rcas_x8", "rcas.cu", "rcas.py:108", launched("rcas_batched", *paths), rcas_b_rep),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{gpu} | slice {sl['gpu_ms']:.4f} ms/frame (device), {sl['wall_ms']:.4f} ms/frame (host)"
           f" | {STREAMS}-stream tick {ms['gpu_ms']:.4f} / {ms['wall_ms']:.4f} ms"
           f" | chain {ch['gpu_ms']:.4f} / {ch['wall_ms']:.4f} | scaler alone "
           f"{ch['scaler_gpu_ms']:.4f} / {ch['scaler_wall_ms']:.4f}"
-          f" | stream_multi {sm['fps']:.1f} frames/s | K3 x{STREAMS} {lk_b_rep['ms']:.4f} ms",
+          f" | {STREAMS}-stream chain tick {chx['gpu_ms']:.4f} / {chx['wall_ms']:.4f}"
+          f" | mesh {me['gpu_ms']:.4f} / {me['wall_ms']:.4f}"
+          f" | {STREAMS}-stream mesh tick {mex['gpu_ms']:.4f} / {mex['wall_ms']:.4f}"
+          f" | stream_multi {sm['fps']:.1f} frames/s | K3 x{STREAMS} {lk_b_rep['ms']:.4f} ms"
+          f" | K5 x{STREAMS} {easu_b_rep['ms']:.4f} ms | K6 x{STREAMS} {rcas_b_rep['ms']:.4f} ms",
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

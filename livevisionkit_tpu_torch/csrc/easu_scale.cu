@@ -23,7 +23,12 @@
 // of its samples and their per-source-pixel direction terms in shared
 // memory (csrc/easu.cuh) and resolves each output from there.  A tile
 // whose box exceeds kBoxCap (a strong downscale) gathers from device
-// memory.  Placement, exactly as the plain version:
+// memory.  S streams (the batched form, behind ops/easu's vmap rule) are S
+// z-slices of one grid, as K2 is K1's (csrc/warp.cu): each stream reads its
+// source at its own stream stride (0 for a source every stream shares) and
+// writes its slice of the contiguous (S, C, OH, OW) output; the streams
+// share the placement, since shapes are static.  Placement, exactly as the
+// plain version:
 //  - rational (oh/h = py/qy, ow/w = px/qx, small-rational upscales): with
 //    num = 2q*u + q - p, y0 = floor(num / 2p) and ppy = (num mod 2p) / 2p,
 //    in integer arithmetic and one correctly rounded division;
@@ -63,9 +68,9 @@ __device__ __forceinline__ void place(int u, int n_in, int rational, int p, int 
 // faster than three.
 template <int NC>
 __global__ void __launch_bounds__(kThreadsX * kThreadsY, 4)
-    easu_scale_kernel(const float* __restrict__ src, float* __restrict__ out, int h, int w,
-                      int oh, int ow, int rational, int py, int qy, int px, int qx, float sy,
-                      float sx, int rgb_luma) {
+    easu_scale_kernel(const float* __restrict__ src, float* __restrict__ out, long long src_ss,
+                      int h, int w, int oh, int ow, int rational, int py, int qy, int px, int qx,
+                      float sy, float sx, int rgb_luma) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Box<NC, kBoxCap> box(smem);
   __shared__ int col_x0[kTileW], row_y0[kTileH];
@@ -73,6 +78,8 @@ __global__ void __launch_bounds__(kThreadsX * kThreadsY, 4)
   __shared__ int4 red[kWarps];
   const size_t oplane = static_cast<size_t>(oh) * ow;
   const size_t splane = static_cast<size_t>(h) * w;
+  src += blockIdx.z * src_ss;
+  out += blockIdx.z * (oplane * NC);
   const int tile_x = blockIdx.x * kTileW, tile_y = blockIdx.y * kTileH;
   const int tid = threadIdx.y * kThreadsX + threadIdx.x;
 
@@ -126,36 +133,52 @@ __global__ void __launch_bounds__(kThreadsX * kThreadsY, 4)
 }
 
 template <int NC>
-cudaError_t launch(const float* src, float* out, int h, int w, int oh, int ow, int rational,
-                   int py, int qy, int px, int qx, float sy, float sx, int rgb_luma,
-                   cudaStream_t stream) {
+cudaError_t launch(const float* src, float* out, int n_streams, long long src_ss, int h, int w,
+                   int oh, int ow, int rational, int py, int qy, int px, int qx, float sy,
+                   float sx, int rgb_luma, cudaStream_t stream) {
   const size_t smem = Box<NC, kBoxCap>::kBytes;
   const cudaError_t e = allow_smem(easu_scale_kernel<NC>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((ow + kTileW - 1) / kTileW, (oh + kTileH - 1) / kTileH);
+  const dim3 grid((ow + kTileW - 1) / kTileW, (oh + kTileH - 1) / kTileH, n_streams);
   easu_scale_kernel<NC><<<grid, dim3(kThreadsX, kThreadsY), smem, stream>>>(
-      src, out, h, w, oh, ow, rational, py, qy, px, qx, sy, sx, rgb_luma);
+      src, out, src_ss, h, w, oh, ow, rational, py, qy, px, qx, sy, sx, rgb_luma);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// src: (nc, h, w) f32; out: (nc, oh, ow) f32.  1 <= nc <= 4.  rational picks
-// the sample placement (py, qy, px, qx) over (sy, sx) = (h/oh, w/ow).
-// Returns cudaGetLastError() after the launch.
-extern "C" int lvk_easu_scale(const void* src, void* out, int nc, int h, int w, int oh, int ow,
-                              int rational, int py, int qy, int px, int qx, float sy, float sx,
-                              int rgb_luma, void* stream) {
-  if (nc < 1 || nc > 4) return static_cast<int>(cudaErrorInvalidValue);
+// src: S (nc, h, w) f32 sources, each contiguous, src_ss elements apart (0:
+// one source shared by every stream); out: contiguous (S, nc, oh, ow) f32.
+// 1 <= nc <= 4, 1 <= S <= 65535.  rational picks the sample placement (py,
+// qy, px, qx) over (sy, sx) = (h/oh, w/ow).  Returns cudaGetLastError()
+// after the launch.
+extern "C" int lvk_easu_scale_batched(const void* src, void* out, int n_streams, long long src_ss,
+                                      int nc, int h, int w, int oh, int ow, int rational, int py,
+                                      int qy, int px, int qx, float sy, float sx, int rgb_luma,
+                                      void* stream) {
+  if (nc < 1 || nc > 4 || n_streams < 1 || n_streams > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* s = static_cast<const float*>(src);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n = n_streams;
+  const long long ss = src_ss;
   cudaError_t e;
   switch (nc) {
-    case 1: e = launch<1>(s, o, h, w, oh, ow, rational, py, qy, px, qx, sy, sx, rgb_luma, st); break;
-    case 2: e = launch<2>(s, o, h, w, oh, ow, rational, py, qy, px, qx, sy, sx, rgb_luma, st); break;
-    case 3: e = launch<3>(s, o, h, w, oh, ow, rational, py, qy, px, qx, sy, sx, rgb_luma, st); break;
-    default: e = launch<4>(s, o, h, w, oh, ow, rational, py, qy, px, qx, sy, sx, rgb_luma, st); break;
+    case 1: e = launch<1>(s, o, n, ss, h, w, oh, ow, rational, py, qy, px, qx, sy, sx, rgb_luma, st); break;
+    case 2: e = launch<2>(s, o, n, ss, h, w, oh, ow, rational, py, qy, px, qx, sy, sx, rgb_luma, st); break;
+    case 3: e = launch<3>(s, o, n, ss, h, w, oh, ow, rational, py, qy, px, qx, sy, sx, rgb_luma, st); break;
+    default: e = launch<4>(s, o, n, ss, h, w, oh, ow, rational, py, qy, px, qx, sy, sx, rgb_luma, st); break;
   }
   return static_cast<int>(e);
+}
+
+// One frame: the S = 1 launch.  src: (nc, h, w) f32; out: (nc, oh, ow) f32.
+// The entry point that every version of the library exports
+// (tools/torch_kernels_ab.py times versions by it).
+extern "C" int lvk_easu_scale(const void* src, void* out, int nc, int h, int w, int oh, int ow,
+                              int rational, int py, int qy, int px, int qx, float sy, float sx,
+                              int rgb_luma, void* stream) {
+  return lvk_easu_scale_batched(src, out, 1, 0, nc, h, w, oh, ow, rational, py, qy, px, qx, sy,
+                                sx, rgb_luma, stream);
 }

@@ -20,7 +20,12 @@
 // warp shuffle, or one scalar load at a warp's edge.  Per pixel it takes
 // the per-channel limiters, reduces the lobe across channels in registers
 // and writes every channel with 16-byte streaming stores; border pixels
-// are copied in the same pass (FSR.cl:484-491).  kRows = 2 and a rolled
+// are copied in the same pass (FSR.cl:484-491).  S streams (the batched
+// form, behind ops/rcas's vmap rule) are S z-slices of one grid: each
+// stream reads its frame at its own stream stride (0 for a frame every
+// stream shares) and writes its slice of the contiguous (S, C, H, W)
+// output.  The 16-byte row path is chosen per launch, and only where every
+// stream's planes start on 16 bytes.  kRows = 2 and a rolled
 // row loop measured best on the H100: longer walks, a prefetched next row
 // or an unrolled walk each hold more registers or more code and leave
 // fewer bytes in flight.
@@ -66,13 +71,15 @@ __device__ __forceinline__ Row load_row(const float* __restrict__ row, int x0, i
 
 template <int NC, bool VEC>
 __global__ void __launch_bounds__(32 * kWarps)
-    rcas_kernel(const float* __restrict__ src, float* __restrict__ out, int h, int w,
-                float sharpness) {
+    rcas_kernel(const float* __restrict__ src, float* __restrict__ out, long long src_ss, int h,
+                int w, float sharpness) {
   const int lane = threadIdx.x;
   const int x0 = (blockIdx.x * 32 + lane) * kStrip;
   const int y0 = (blockIdx.y * kWarps + threadIdx.y) * kRows;
   if (y0 >= h) return;  // whole warps: threadIdx.y is the warp's
   const size_t plane = static_cast<size_t>(h) * w;
+  src += blockIdx.z * src_ss;
+  out += blockIdx.z * (plane * NC);
   Row up[NC], mid[NC], dn[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
@@ -133,36 +140,50 @@ __global__ void __launch_bounds__(32 * kWarps)
 }
 
 template <int NC>
-void launch(const float* src, float* out, int h, int w, float sharpness, bool vec,
-            cudaStream_t stream) {
+void launch(const float* src, float* out, int n_streams, long long src_ss, int h, int w,
+            float sharpness, bool vec, cudaStream_t stream) {
   const dim3 block(32, kWarps);
   const dim3 grid((w + 32 * kStrip - 1) / (32 * kStrip),
-                  (h + kWarps * kRows - 1) / (kWarps * kRows));
+                  (h + kWarps * kRows - 1) / (kWarps * kRows), n_streams);
   if (vec)
-    rcas_kernel<NC, true><<<grid, block, 0, stream>>>(src, out, h, w, sharpness);
+    rcas_kernel<NC, true><<<grid, block, 0, stream>>>(src, out, src_ss, h, w, sharpness);
   else
-    rcas_kernel<NC, false><<<grid, block, 0, stream>>>(src, out, h, w, sharpness);
+    rcas_kernel<NC, false><<<grid, block, 0, stream>>>(src, out, src_ss, h, w, sharpness);
 }
 
 }  // namespace
 
-// src, out: (nc, h, w) f32, nc <= 4.  Rows go by 16-byte loads and stores
-// where w is a multiple of 4 and both buffers are 16-byte aligned.
+// src: S (nc, h, w) f32 frames, each contiguous, src_ss elements apart (0:
+// one frame shared by every stream); out: contiguous (S, nc, h, w) f32.
+// nc <= 4, 1 <= S <= 65535.  Rows go by 16-byte loads and stores where
+// every stream's planes start on 16 bytes: w a multiple of 4, both buffers
+// 16-byte aligned and src_ss a multiple of 4 (a shared frame's 0 is).
 // Returns cudaGetLastError() after the launch.
-extern "C" int lvk_rcas(const void* src, void* out, int nc, int h, int w, float sharpness,
-                        void* stream) {
-  if (nc < 1 || nc > 4 || h < 1 || w < 1 || (h + kWarps * kRows - 1) / (kWarps * kRows) > 65535)
+extern "C" int lvk_rcas_batched(const void* src, void* out, int n_streams, long long src_ss,
+                                int nc, int h, int w, float sharpness, void* stream) {
+  if (nc < 1 || nc > 4 || h < 1 || w < 1 || n_streams < 1 || n_streams > 65535 ||
+      (h + kWarps * kRows - 1) / (kWarps * kRows) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* s = static_cast<const float*>(src);
   float* o = static_cast<float*>(out);
-  const bool vec = w % kStrip == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+  const bool vec = w % kStrip == 0 && src_ss % kStrip == 0 &&
+                   reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n = n_streams;
   switch (nc) {
-    case 1: launch<1>(s, o, h, w, sharpness, vec, st); break;
-    case 2: launch<2>(s, o, h, w, sharpness, vec, st); break;
-    case 3: launch<3>(s, o, h, w, sharpness, vec, st); break;
-    default: launch<4>(s, o, h, w, sharpness, vec, st); break;
+    case 1: launch<1>(s, o, n, src_ss, h, w, sharpness, vec, st); break;
+    case 2: launch<2>(s, o, n, src_ss, h, w, sharpness, vec, st); break;
+    case 3: launch<3>(s, o, n, src_ss, h, w, sharpness, vec, st); break;
+    default: launch<4>(s, o, n, src_ss, h, w, sharpness, vec, st); break;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One frame: the S = 1 launch.  src, out: (nc, h, w) f32.  The entry point
+// that every version of the library exports (tools/torch_kernels_ab.py
+// times versions by it).
+extern "C" int lvk_rcas(const void* src, void* out, int nc, int h, int w, float sharpness,
+                        void* stream) {
+  return lvk_rcas_batched(src, out, 1, 0, nc, h, w, sharpness, stream);
 }

@@ -6,6 +6,10 @@ One step `(state, frame) -> (state, frame)`: track the luma, run the
 scene-quality/trust servo (motion scaled by trust, instant drop on a
 tracking discontinuity), advance the path smoother, push the frame into the
 u8 delay queue, pop the delayed one and warp it by the correction.  The
+motion model is the tracker's `motion_resolution`: a 2x2 field (global
+homography) or a mesh, e.g. presets.stabilization_preset(model="field")'s
+16x16; the step is the same for both, and a mesh's correction warps by its
+dense sample map through the same warp kernel.  The
 step is branch-free on tensor values: every flag is a 0-d bool tensor and
 every gate a `torch.where`, so nothing in it waits for the device.
 """

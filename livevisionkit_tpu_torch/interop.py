@@ -43,12 +43,16 @@ def _t(x, device, dtype=None) -> torch.Tensor:
 def stabilizer_state_from_numpy(
     tree, settings: StabilizationFilterSettings, device: torch.device | str, seed: int = 0
 ) -> StabilizerState:
-    """The port's StabilizerState equal to a JAX one given as numpy leaves."""
+    """The port's StabilizerState equal to a JAX one given as numpy leaves,
+    in either motion model (the mesh solve's previous local mesh is
+    carried in both, as the JAX state holds it in both)."""
     tr = tree.tracker
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    if tuple(settings.tracker.motion_resolution) != (2, 2):
-        raise NotImplementedError("mesh-mode state is ROADMAP slice 2")
+    mesh_shape = tuple(np.shape(tr.prev_mesh)[-2:])
+    if mesh_shape != tuple(settings.tracker.motion_resolution):
+        raise ValueError(f"state's mesh {mesh_shape} is not the settings' motion_resolution "
+                         f"{tuple(settings.tracker.motion_resolution)}")
     tracker = frame_tracker.TrackerState(
         pyramid=Pyramid(levels=tuple(_t(lv, device, torch.float32) for lv in tr.pyramid.levels)),
         features=FeatureGrid(
@@ -59,6 +63,8 @@ def stabilizer_state_from_numpy(
         thresholds=_t(tr.thresholds, device, torch.float32),
         has_prev=_t(tr.has_prev, device, torch.bool),
         generator=gen,
+        prev_mesh=_t(tr.prev_mesh, device, torch.float32),
+        has_prev_mesh=_t(tr.has_prev_mesh, device, torch.bool),
     )
 
     sm = tree.smoother

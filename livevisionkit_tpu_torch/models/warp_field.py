@@ -6,8 +6,12 @@ normalized units (1.0 = frame height/width - 1), with corner-aligned
 control points.  Warping image I by a field f gives
 O(u) = I(u_px + f(u) * (size - 1)): backward offsets, like the reference.
 
-This slice ports the exact 2x2 (homography) path; general meshes wait for
-ROADMAP slice 2 (mesh mode).
+A 2x2 field warps by its exact homography (the flagship's global mode,
+WarpMesh.cpp:196-218); any other field (mesh mode, e.g. 16x16) upsamples
+its offsets to a dense (2, H, W) sample map and warps through the same
+custom op `ops/remap.remap`, so on the card both modes run the warp kernel
+K1.  Every method works on the offsets' device and builds no tensor from
+host values, so none of them synchronizes the stream.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from livevisionkit_tpu_torch.models.homography import Homography
 from livevisionkit_tpu_torch.ops import remap as remap_ops
+from livevisionkit_tpu_torch.ops import resample
 from livevisionkit_tpu_torch.utils.batching import pytree_dataclass
 
 
@@ -101,41 +106,123 @@ class WarpField:
 
     __rmul__ = __mul__
 
+    def __neg__(self) -> "WarpField":
+        return WarpField(offsets=-self.offsets)
+
+    def lerp(self, other: "WarpField", t) -> "WarpField":
+        """Blend toward `other` (reference WarpMesh::blend)."""
+        return WarpField(offsets=self.offsets + (other.offsets - self.offsets) * t)
+
     def clamp(self, limits_y, limits_x) -> "WarpField":
         """Clamp normalized offsets into +/- limits (corrective limits)."""
         dy = torch.clamp(self.offsets[0], -limits_y, limits_y)
         dx = torch.clamp(self.offsets[1], -limits_x, limits_x)
         return WarpField(offsets=torch.stack([dy, dx]))
 
+    def scale(self, factors) -> "WarpField":
+        """Append a zoom about the origin (reference WarpMesh::scale,
+        WarpMesh.cpp:370-377): backward sampling at u/s adds
+        u_n * (1/s - 1) to the normalized offsets.  `factors` = (sy, sx),
+        numbers or 0-d tensors."""
+        yy, xx = _grid_unit(self.field_shape, self.offsets.device)
+        sy, sx = factors[0], factors[1]
+        return WarpField(offsets=self.offsets + torch.stack([yy * (1.0 / sy - 1.0),
+                                                             xx * (1.0 / sx - 1.0)]))
+
+    def crop_in(self, tl, region_size) -> "WarpField":
+        """Append a crop: the output span maps onto the normalized region
+        [tl, tl + region_size) (reference WarpMesh::crop_in,
+        WarpMesh.cpp:381-392).  tl and region_size as (y, x)."""
+        yy, xx = _grid_unit(self.field_shape, self.offsets.device)
+        return WarpField(offsets=self.offsets + torch.stack([
+            yy * (region_size[0] - 1.0) + tl[0], xx * (region_size[1] - 1.0) + tl[1]]))
+
+    def rotate(self, degrees) -> "WarpField":
+        """Append a rotation of the sampling grid about the field centre
+        (reference WarpMesh::rotate, WarpMesh.cpp:396-410: arm = (coord -
+        centre) / size, offset += R(arm) - arm, with the reference's /size
+        normalization).  `degrees` is a number or a 0-d tensor."""
+        hm, wm = self.field_shape
+        dev = self.offsets.device
+        rad = torch.deg2rad(torch.as_tensor(degrees, dtype=torch.float32, device=dev))
+        c, s = torch.cos(rad), torch.sin(rad)
+        yy = (torch.arange(hm, dtype=torch.float32, device=dev)[:, None].expand(hm, wm)
+              - (hm - 1) / 2) / hm
+        xx = (torch.arange(wm, dtype=torch.float32, device=dev)[None, :].expand(hm, wm)
+              - (wm - 1) / 2) / wm
+        # Reference math is in (x, y): x' = x cos - y sin, y' = x sin + y cos.
+        dx = (xx * c - yy * s) - xx
+        dy = (xx * s + yy * c) - yy
+        return WarpField(offsets=self.offsets + torch.stack([dy, dx]))
+
+    def covers(self, region_tl, region_br, size: tuple[int, int]) -> torch.Tensor:
+        """0-d bool: does warping a `size` frame by this field give in-frame
+        content over the whole normalized region [region_tl, region_br]
+        ((y, x) each)?  The map u + o(u) is bilinear within each mesh cell,
+        so over a rectangle its extremes sit at corner evaluations: the
+        control lines clipped to the region plus the region's edges cover
+        every one (the general form of the reference's
+        BoundingQuad::encloses, BoundingQuad.hpp:27-43)."""
+        hm, wm = self.field_shape
+        h, w = size
+        (y0, x0), (y1, x1) = region_tl, region_br
+        dev = self.offsets.device
+        ys = torch.cat([torch.clamp(torch.arange(hm, dtype=torch.float32, device=dev) / (hm - 1),
+                                    y0, y1), torch.linspace(y0, y1, 2, device=dev)])
+        xs = torch.cat([torch.clamp(torch.arange(wm, dtype=torch.float32, device=dev) / (wm - 1),
+                                    x0, x1), torch.linspace(x0, x1, 2, device=dev)])
+        gy = ys[:, None].expand(ys.shape[0], xs.shape[0])
+        gx = xs[None, :].expand(ys.shape[0], xs.shape[0])
+        off = remap_ops.bilinear_sample(self.offsets, gy * (hm - 1), gx * (wm - 1), fill=None)
+        sy = (gy + off[0]) * (h - 1)
+        sx = (gx + off[1]) * (w - 1)
+        return ((sy >= 0.0) & (sy <= h - 1) & (sx >= 0.0) & (sx <= w - 1)).all()
+
+    def magnitude(self) -> torch.Tensor:
+        """Per-point L2 offset magnitude (normalized units), (Hm, Wm)."""
+        return torch.sqrt(torch.sum(self.offsets ** 2, dim=0))
+
+    def resize(self, field_shape: tuple[int, int]) -> "WarpField":
+        """Resample the control grid (corner-aligned)."""
+        if tuple(field_shape) == self.field_shape:
+            return self
+        return WarpField(offsets=resample.resize_corner_aligned(self.offsets, tuple(field_shape)))
+
     def compose(self, outer: "WarpField") -> "WarpField":
         """First warp by `outer`, then by self: c(u) = outer.o(u) +
-        self.o(u + outer.o(u)) (reference WarpMesh::combine)."""
-        if outer.field_shape != self.field_shape:
-            raise NotImplementedError(
-                "composing fields of different shapes needs the corner-aligned "
-                "resize (ROADMAP slice 2, mesh mode)"
-            )
+        self.o(u + outer.o(u)) (reference WarpMesh::combine); `outer` is
+        first resized to self's grid."""
         hm, wm = self.field_shape
-        o = outer.offsets
+        o = outer.resize((hm, wm)).offsets
         yy, xx = _grid_unit((hm, wm), o.device)
         sy = (yy + o[0]) * (hm - 1)
         sx = (xx + o[1]) * (wm - 1)
         inner_at = remap_ops.bilinear_sample(self.offsets, sy, sx, fill=None)
         return WarpField(offsets=o + inner_at)
 
+    # ---- application -------------------------------------------------------
+
+    def sample_map(self, size: tuple[int, int]) -> torch.Tensor:
+        """(2, H, W) absolute-pixel backward sample map at frame resolution,
+        built on the offsets' device."""
+        off = resample.resize_corner_aligned(self.offsets, tuple(size))
+        return remap_ops.identity_map(tuple(size), device=off.device) + _to_px(off, size)
+
     def apply(
         self,
         img: torch.Tensor,
         fill: float | None = 0.0,
+        exact_2x2: bool = True,
         filter_mode: str = "easu",
         fmt=None,
     ) -> torch.Tensor:
-        """Warp a (C, H, W) / (H, W) image by this field.  A 2x2 field takes
-        the exact homography path, like the reference (WarpMesh.cpp:196-218)."""
-        if self.field_shape != (2, 2):
-            raise NotImplementedError(
-                "WarpField.apply on a non-2x2 field is mesh mode (ROADMAP slice 2)"
-            )
-        return self.to_homography(img.shape[-2:]).warp(
-            img, fill=fill, filter_mode=filter_mode, fmt=fmt
-        )
+        """Warp a (C, H, W) / (H, W) image by this field (reference
+        WarpMesh::apply, WarpMesh.cpp:183-223).  A 2x2 field takes the
+        exact homography path, like the reference (:196-218), unless
+        `exact_2x2` is False; any other field warps by its dense sample
+        map."""
+        size = tuple(img.shape[-2:])
+        if exact_2x2 and self.field_shape == (2, 2):
+            return self.to_homography(size).warp(img, fill=fill, filter_mode=filter_mode, fmt=fmt)
+        return remap_ops.remap(img, self.sample_map(size), fill=fill, filter_mode=filter_mode,
+                               fmt=fmt)

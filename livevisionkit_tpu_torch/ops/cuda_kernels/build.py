@@ -148,13 +148,16 @@ _p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # but lvk_error_string.
 _WARP_ARGS = [_p, _p, _p, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _f, _i]
 _LK_ARGS = [_p, _p, _p, _p, _p, _p, _i, _i, _p, _ll, _p, _ll, _p, _p, _i, _i, _i, _f]
+_SCALE_ARGS = [_i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _i, _p]
 _ENTRY_POINTS = {
     "lvk_warp": _WARP_ARGS + [_p],
     "lvk_warp_counted": _WARP_ARGS + [_p, _p],
     "lvk_lk_track": _LK_ARGS + [_p],
     "lvk_lk_track_counted": _LK_ARGS + [_p, _p],
-    "lvk_easu_scale": [_p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _i, _p],
+    "lvk_easu_scale": [_p, _p] + _SCALE_ARGS,
+    "lvk_easu_scale_batched": [_p, _p, _i, _ll] + _SCALE_ARGS,
     "lvk_rcas": [_p, _p, _i, _i, _i, _f, _p],
+    "lvk_rcas_batched": [_p, _p, _i, _ll, _i, _i, _i, _f, _p],
     "lvk_noop": [_p],
     "lvk_error_string": [_i],
 }
@@ -165,7 +168,9 @@ def library(csrc: Path = CSRC, out_dir: Path = BUILD_DIR) -> ctypes.CDLL:
     """The loaded kernel library of `csrc` (built on first call), with the
     argument and return types of each entry point it exports declared
     (versions differ in which they export: before the restaged count,
-    `lvk_lk_track` took no counter and `lvk_lk_track_counted` was absent)."""
+    `lvk_lk_track` took no counter and `lvk_lk_track_counted` was absent;
+    before K5 and K6 had a stream axis, `lvk_easu_scale_batched` and
+    `lvk_rcas_batched` were absent)."""
     lib = ctypes.CDLL(str(build(csrc=csrc, out_dir=out_dir)))
     for name, args in _ENTRY_POINTS.items():
         fn = getattr(lib, name, None)

@@ -26,6 +26,7 @@ import torch
 
 from livevisionkit_tpu_torch.ops.cuda_kernels import easu_scale as easu_scale_kernel
 from livevisionkit_tpu_torch.types import PixelFormat
+from livevisionkit_tpu_torch.utils.batching import stream_first
 
 # (dx, dy) of the 12 taps relative to f, in reference tap order.
 _TAPS = {
@@ -280,14 +281,67 @@ def easu_scale_plain(
     return out[0] if squeeze else out
 
 
+def easu_scale_batched_plain(
+    imgs: torch.Tensor, out_size: tuple[int, int], fmt: PixelFormat = PixelFormat.YUV
+) -> torch.Tensor:
+    """`easu_scale_plain` over a leading stream axis, by torch.func.vmap:
+    the batched rule's CPU path, and the reference the scale kernel's
+    stream axis is held against on the card."""
+    return torch.func.vmap(lambda im: easu_scale_plain(im, out_size, fmt))(imgs)
+
+
 def easu_scale(
     img: torch.Tensor, out_size: tuple[int, int], fmt: PixelFormat = PixelFormat.YUV
 ) -> torch.Tensor:
     """EASU resize of a float32 (C, H, W) or (H, W) image to `out_size`
     (reference easu_scale, FSR.cl:324-358), half-pixel convention
     p = (u + 0.5) * (in/out) - 0.5.  A CUDA tensor launches the scale
-    kernel (csrc/easu_scale.cu), a CPU tensor takes `easu_scale_plain`."""
+    kernel (csrc/easu_scale.cu), a CPU tensor takes `easu_scale_plain`.
+
+    It is the custom op ``lvk::easu_scale``, whose vmap rule turns
+    `torch.func.vmap` over streams into ONE call of
+    ``lvk::easu_scale_batched``: one launch of the kernel over all S
+    streams on the card, one call of the plain version on the stacked
+    tensors on the CPU."""
+    return _easu_scale_op(img, [int(v) for v in out_size], fmt.value)
+
+
+_SCALE_SCHEMA = "(Tensor img, int[] out_size, str fmt) -> Tensor"
+
+
+@torch.library.custom_op("lvk::easu_scale", mutates_args=(), schema=_SCALE_SCHEMA)
+def _easu_scale_op(img, out_size, fmt):
+    """One frame: the scale kernel for a CUDA tensor, the plain version for
+    a CPU one."""
+    size = tuple(out_size)
     if img.is_cuda:
-        plan = scale_plan(tuple(img.shape[-2:]), tuple(out_size))
-        return easu_scale_kernel.easu_scale(img, tuple(out_size), plan, fmt=fmt)
-    return easu_scale_plain(img, out_size, fmt)
+        plan = scale_plan(tuple(img.shape[-2:]), size)
+        return easu_scale_kernel.easu_scale(img, size, plan, fmt=PixelFormat(fmt))
+    return easu_scale_plain(img, size, PixelFormat(fmt))
+
+
+@torch.library.custom_op("lvk::easu_scale_batched", mutates_args=(), schema=_SCALE_SCHEMA)
+def _easu_scale_batched_op(img, out_size, fmt):
+    """S frames (S, C, H, W) or (S, H, W): one launch of the scale kernel
+    for CUDA tensors, the plain version on the stack for CPU ones."""
+    size = tuple(out_size)
+    if img.is_cuda:
+        plan = scale_plan(tuple(img.shape[-2:]), size)
+        return easu_scale_kernel.easu_scale_batched(img, size, plan, fmt=PixelFormat(fmt))
+    return easu_scale_batched_plain(img, size, PixelFormat(fmt))
+
+
+@_easu_scale_op.register_fake
+@_easu_scale_batched_op.register_fake
+def _easu_scale_fake(img, out_size, fmt):
+    return img.new_empty(img.shape[:-2] + tuple(out_size))
+
+
+def _easu_scale_vmap(info, in_dims, img, out_size, fmt):
+    """vmap rule of ``lvk::easu_scale``: one batched scale for all streams;
+    an unbatched frame is broadcast at stream stride 0, not copied."""
+    imgs = stream_first(img, in_dims[0], info.batch_size)
+    return _easu_scale_batched_op(imgs, out_size, fmt), 0
+
+
+_easu_scale_op.register_vmap(_easu_scale_vmap)

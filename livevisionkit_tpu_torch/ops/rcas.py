@@ -10,7 +10,10 @@ out = ((b + d + f + h) * lobe + e) / (4 * lobe + 1).  Border pixels copy
 through (:484-491).
 
 `rcas_plain` is the JAX package's XLA form; the CUDA kernel
-(csrc/rcas.cu) computes the same operations in the same order.
+(csrc/rcas.cu) computes the same operations in the same order.  `rcas` is
+the custom op ``lvk::rcas``; under `torch.func.vmap` over streams its rule
+calls ``lvk::rcas_batched`` once a tick (ops/remap.py does the same for
+the warp).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from livevisionkit_tpu_torch.ops.cuda_kernels import rcas as rcas_kernel
+from livevisionkit_tpu_torch.utils.batching import stream_first
 
 
 def rcas_plain(img: torch.Tensor, sharpness: float = 0.8) -> torch.Tensor:
@@ -49,10 +53,52 @@ def rcas_plain(img: torch.Tensor, sharpness: float = 0.8) -> torch.Tensor:
     return out[0] if squeeze else out
 
 
+def rcas_batched_plain(imgs: torch.Tensor, sharpness: float = 0.8) -> torch.Tensor:
+    """`rcas_plain` over a leading stream axis, by torch.func.vmap: the
+    batched rule's CPU path, and the reference the RCAS kernel's stream
+    axis is held against on the card."""
+    return torch.func.vmap(lambda im: rcas_plain(im, sharpness))(imgs)
+
+
 def rcas(img: torch.Tensor, sharpness: float = 0.8) -> torch.Tensor:
     """Sharpen float32 (C, H, W) or (H, W) planes; `sharpness` in [0, 1].
     A CUDA tensor launches the RCAS kernel, a CPU tensor takes
-    `rcas_plain`."""
+    `rcas_plain`.  It is the custom op ``lvk::rcas``, whose vmap rule makes
+    `torch.func.vmap` over streams ONE call of ``lvk::rcas_batched``."""
+    return _rcas_op(img, float(sharpness))
+
+
+_SCHEMA = "(Tensor img, float sharpness) -> Tensor"
+
+
+@torch.library.custom_op("lvk::rcas", mutates_args=(), schema=_SCHEMA)
+def _rcas_op(img, sharpness):
+    """One frame: the RCAS kernel for a CUDA tensor, `rcas_plain` for a CPU
+    one."""
     if img.is_cuda:
         return rcas_kernel.rcas(img, sharpness)
     return rcas_plain(img, sharpness)
+
+
+@torch.library.custom_op("lvk::rcas_batched", mutates_args=(), schema=_SCHEMA)
+def _rcas_batched_op(img, sharpness):
+    """S frames (S, C, H, W) or (S, H, W): one launch of the RCAS kernel
+    for CUDA tensors, the plain version on the stack for CPU ones."""
+    if img.is_cuda:
+        return rcas_kernel.rcas_batched(img, sharpness)
+    return rcas_batched_plain(img, sharpness)
+
+
+@_rcas_op.register_fake
+@_rcas_batched_op.register_fake
+def _rcas_fake(img, sharpness):
+    return img.new_empty(img.shape)
+
+
+def _rcas_vmap(info, in_dims, img, sharpness):
+    """vmap rule of ``lvk::rcas``: one batched launch for all streams; an
+    unbatched frame is broadcast at stream stride 0, not copied."""
+    return _rcas_batched_op(stream_first(img, in_dims[0], info.batch_size), sharpness), 0
+
+
+_rcas_op.register_vmap(_rcas_vmap)

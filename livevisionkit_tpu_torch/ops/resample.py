@@ -1,10 +1,13 @@
-"""Resize and pyramid ops on (..., H, W) tensors (counterpart of
+"""Resize, pyramid and gradient ops on (..., H, W) tensors (counterpart of
 livevisionkit_tpu/ops/resample.py; the stabilizer's path needs `resize` with
-antialias and the pyrDown pyramid).
+antialias and the pyrDown pyramid, mesh mode the corner-aligned resize of
+its warp fields).
 
-Reference parity: the detection-resolution downscale (FrameTracker.cpp:117)
-and cv::buildOpticalFlowPyramid's pyrDown (5-tap binomial blur + 2x
-decimation, BORDER_REFLECT_101).
+Reference parity: the detection-resolution downscale (FrameTracker.cpp:117),
+cv::buildOpticalFlowPyramid's pyrDown (5-tap binomial blur + 2x
+decimation, BORDER_REFLECT_101), OpenCV LK's Scharr 3x3 derivative, and
+the corner-aligned grid interpolation of WarpField meshes
+(Math/VirtualGrid.cpp:85-117).
 """
 
 from __future__ import annotations
@@ -16,6 +19,10 @@ import torch.nn.functional as F
 
 # 5-tap binomial (Gaussian approx) used by cv::pyrDown.
 _BINOMIAL5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
+
+# Scharr 3x3 derivative, OpenCV normalisation (1/32).
+_SCHARR_D = (-1.0, 0.0, 1.0)
+_SCHARR_S = (3.0 / 32.0, 10.0 / 32.0, 3.0 / 32.0)
 
 
 def _sep_conv2d(img: torch.Tensor, kh, kw) -> torch.Tensor:
@@ -45,6 +52,11 @@ def gaussian_blur5(img: torch.Tensor) -> torch.Tensor:
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
     """One pyramid level: binomial blur + 2x decimation; output ceil(n/2)."""
     return gaussian_blur5(img)[..., ::2, ::2].contiguous()
+
+
+def scharr_gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dy) Scharr 3x3 gradients with OpenCV's 1/32 scaling."""
+    return _sep_conv2d(img, _SCHARR_S, _SCHARR_D), _sep_conv2d(img, _SCHARR_D, _SCHARR_S)
 
 
 def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
@@ -100,3 +112,22 @@ def resize(img: torch.Tensor, size: tuple[int, int], antialias: bool = True) -> 
     if oh != h:
         out = _weight_mat(h, oh, antialias, img.device).transpose(0, 1) @ out
     return out
+
+
+def resize_corner_aligned(img: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of (..., H, W) with CORNER alignment: output pixel i
+    samples input coordinate i*(in-1)/(out-1), so the corner pixels map onto
+    each other exactly (align_corners=True).  This is the interpolation of
+    WarpField grids, whose control points are corner-aligned over the frame.
+    One `F.interpolate` call; it keeps the input's device and, under
+    `torch.func.vmap`, its stream axis."""
+    in_h, in_w = img.shape[-2], img.shape[-1]
+    out_h, out_w = size
+    if (in_h, in_w) == (out_h, out_w):
+        return img
+    if in_h == 1 or in_w == 1:
+        raise ValueError("corner-aligned resize needs >= 2 samples per axis")
+    lead = img.shape[:-2]
+    x = img.reshape((1, -1, in_h, in_w))
+    out = F.interpolate(x, size=(out_h, out_w), mode="bilinear", align_corners=True)
+    return out.reshape(lead + (out_h, out_w))

@@ -7,8 +7,10 @@ step is `torch.func.vmap` of the filter's own `step`, as the JAX package's
 is `jax.vmap`.  Each of the step's ~1,800 small launches then covers all S
 streams, and each hand-written kernel launches once per tick for all of
 them through its custom op's vmap rule (ops/remap.py for the warp,
-vision/optical_flow.py for LK).  No second, hand-batched copy of the
-tracker exists.
+vision/optical_flow.py for LK, ops/easu.py and ops/rcas.py for the
+scaler's EASU upscale and RCAS), so any chain of the port's filters
+batches, the stabilizer -> `ScalingFilter` chain included.  No second,
+hand-batched copy of the tracker exists.
 
 RANSAC draws with ``randomness="different"``: each stream draws its own
 hypotheses from the state's one generator.  (In the JAX package every
@@ -28,8 +30,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from livevisionkit_tpu_torch.data.frame import Frame
-from livevisionkit_tpu_torch.filters.base import CompositeFilter, FrameSpec, VideoFilter
-from livevisionkit_tpu_torch.filters.scaling import ScalingFilter
+from livevisionkit_tpu_torch.filters.base import FrameSpec, VideoFilter
 
 
 @contextlib.contextmanager
@@ -59,24 +60,12 @@ def batched(fn: Callable) -> Callable:
     return run
 
 
-def _check_batchable(filt: VideoFilter) -> None:
-    stages = filt.filters if isinstance(filt, CompositeFilter) else (filt,)
-    for f in stages:
-        if isinstance(f, CompositeFilter):
-            _check_batchable(f)
-        elif isinstance(f, ScalingFilter):
-            raise NotImplementedError(
-                "MultiStreamFilter over ScalingFilter needs vmap rules for the EASU scale "
-                "and RCAS kernels (ROADMAP A 17, K5/K6 vmap rules)")
-
-
 class MultiStreamFilter:
     """Runs a VideoFilter over `n_streams` concurrent streams as one step."""
 
     def __init__(self, filt: VideoFilter, n_streams: int):
         if n_streams < 1:
             raise ValueError(f"need at least one stream, got {n_streams}")
-        _check_batchable(filt)
         self.filt = filt
         self.n_streams = n_streams
         self._step = batched(lambda state, frame, drain: filt.step(state, frame, drain=drain))

@@ -1,5 +1,5 @@
-"""FrameTracker: per-frame global motion estimation on the device
-(counterpart of livevisionkit_tpu/vision/frame_tracker.py; reference
+"""FrameTracker: per-frame motion estimation on the device (counterpart of
+livevisionkit_tpu/vision/frame_tracker.py; reference
 Vision/FrameTracker.cpp).
 
 Downscale to detection resolution, pyramidal LK of the previous grid
@@ -8,8 +8,11 @@ poorly spread set), then detection on the current frame with tracked
 inliers re-seeded.  "No motion" is an `ok` flag plus identity motion, so
 the step keeps fixed shapes and never reads a value back to the host.
 
-This slice ports the global (2x2, homography) mode; mesh mode waits for
-ROADMAP slice 2.
+`settings.motion_resolution` picks the motion model: (2, 2) is the global
+(homography) mode; any other shape, e.g. (16, 16), is mesh mode
+(estimate_local_motions, FrameTracker.cpp:200-321): the homography fit
+anchors a mesh solve (vision/mesh_motion.py) warm-started from, and pulled
+toward, the previous frame's local mesh residual.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from livevisionkit_tpu_torch.models.warp_field import WarpField
 from livevisionkit_tpu_torch.ops import resample
 from livevisionkit_tpu_torch.utils.batching import pytree_dataclass
 from livevisionkit_tpu_torch.vision import features as features_mod
-from livevisionkit_tpu_torch.vision import optical_flow, ransac
+from livevisionkit_tpu_torch.vision import mesh_motion, optical_flow, ransac
 from livevisionkit_tpu_torch.vision.features import FeatureGrid
 from livevisionkit_tpu_torch.vision.optical_flow import Pyramid
 
@@ -50,17 +53,14 @@ class TrackerState:
     # host sync), where the JAX key stays put on invalid frames: the draws
     # differ, their distribution does not.
     generator: torch.Generator
-
-
-def _check_mode(settings: FrameTrackerSettings) -> None:
-    if tuple(settings.motion_resolution) != (2, 2):
-        raise NotImplementedError(
-            f"motion_resolution {settings.motion_resolution} is mesh mode (ROADMAP slice 2)"
-        )
+    # Previous frame's LOCAL mesh residual (solved mesh minus its global
+    # fit; zeros before the first successful solve, and always in global
+    # mode): the mesh solve's warm start and temporal pull target.
+    prev_mesh: torch.Tensor  # (2, hm, wm) normalized offsets
+    has_prev_mesh: torch.Tensor  # 0-d bool
 
 
 def init(settings: FrameTrackerSettings, device: torch.device | str = "cuda", seed: int = 0) -> TrackerState:
-    _check_mode(settings)
     h, w = settings.detection_size
     g = settings.detector.max_features
     gen = torch.Generator(device=device)
@@ -76,6 +76,8 @@ def init(settings: FrameTrackerSettings, device: torch.device | str = "cuda", se
         thresholds=features_mod.initial_thresholds(settings.detector, device=device),
         has_prev=torch.zeros((), dtype=torch.bool, device=device),
         generator=gen,
+        prev_mesh=torch.zeros((2, *settings.motion_resolution), dtype=torch.float32, device=device),
+        has_prev_mesh=torch.zeros((), dtype=torch.bool, device=device),
     )
 
 
@@ -86,8 +88,8 @@ def track(
 
     gray: (H, W) full-resolution luma in [0, 1].
     """
-    _check_mode(settings)
     det_size = tuple(settings.detection_size)
+    res = tuple(settings.motion_resolution)
     det = resample.resize(gray, det_size, antialias=True)
     pyr = Pyramid.build(det, settings.flow.pyramid_levels)
 
@@ -109,7 +111,23 @@ def track(
         & (uniformity >= settings.min_uniformity)
         & (tracked.sum() >= settings.min_motion_samples)
     )
-    motion = WarpField.from_homography(est.homography, settings.motion_resolution, det_size)
+    motion = WarpField.from_homography(est.homography, res, det_size)
+    if res == (2, 2):
+        # Global mode: the local residual stays zero, as it starts.
+        prev_mesh = state.prev_mesh
+    else:
+        # Mesh mode: the global fit anchors the solve; the CG warm-starts
+        # from, and is pulled toward, the previous local mesh
+        # (FrameTracker.cpp:274-276), zero-weighted until one exists.
+        glob = motion
+        motion, _, _ = mesh_motion.estimate(
+            state.features.points, new_pts, tracked.to(torch.float32), glob, det_size,
+            settings.mesh, prev_local=WarpField(offsets=state.prev_mesh),
+            prev_weight_scale=state.has_prev_mesh.to(torch.float32),
+        )
+        # Gated on ok: after a tracking discontinuity the next solve
+        # re-anchors on its global fit.
+        prev_mesh = torch.where(ok, motion.offsets - glob.offsets, 0.0)
     motion = WarpField(offsets=torch.where(ok, motion.offsets, 0.0))
     result = TrackResult(
         motion=motion,
@@ -135,5 +153,7 @@ def track(
         thresholds=thresholds,
         has_prev=torch.ones_like(state.has_prev),
         generator=state.generator,
+        prev_mesh=prev_mesh,
+        has_prev_mesh=ok,
     )
     return new_state, result

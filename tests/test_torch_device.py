@@ -10,6 +10,7 @@ import torch
 import livevisionkit_tpu_torch as lvt
 from livevisionkit_tpu_torch.filters.base import CompositeFilter, VideoFilter
 from livevisionkit_tpu_torch.filters.stabilization import StabilizationFilter
+from livevisionkit_tpu_torch.models.quad import Quad
 from livevisionkit_tpu_torch.models.warp_field import WarpField
 from livevisionkit_tpu_torch.ops import remap
 from livevisionkit_tpu_torch.parallel.streams import MultiStreamFilter
@@ -26,6 +27,7 @@ ENTRY_POINTS = {
     "path_smoother.init": path_smoother.init,
     "features.initial_thresholds": features.initial_thresholds,
     "WarpField.identity": WarpField.identity,
+    "Quad.from_rect": Quad.from_rect,
     "remap.identity_map": remap.identity_map,
 }
 

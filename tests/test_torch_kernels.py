@@ -75,6 +75,21 @@ def test_wrappers_reject_cpu_tensors():
             rcas_kernel.rcas(img.to(dtype))
 
 
+def test_batched_scale_wrappers_reject_cpu_tensors():
+    """The stream-axis wrappers of K5 and K6 raise on a CPU stack, and on an
+    f16 one, instead of taking their plain versions."""
+    imgs = torch.zeros((2, 3, 8, 8))
+    plan = easu_ops.scale_plan((8, 8), (16, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        easu_scale_kernel.easu_scale_batched(imgs, (16, 16), plan)
+    with pytest.raises(ValueError, match="CUDA"):
+        rcas_kernel.rcas_batched(imgs)
+    with pytest.raises(TypeError, match="f32"):
+        easu_scale_kernel.easu_scale_batched(imgs.half(), (16, 16), plan)
+    with pytest.raises(TypeError, match="f32"):
+        rcas_kernel.rcas_batched(imgs.half())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["easu", "bilinear"])
 @pytest.mark.parametrize("dtype", ["float32", "uint8"])
@@ -491,3 +506,138 @@ def test_lk_kernel_shared_pyramid_streams(cuda):
         torch.cuda.synchronize()
         assert torch.equal(sflow, kflow[k]) and torch.equal(sgood, kgood[k])
         _lk_agree(kflow[k], kgood[k], pflow, pgood)
+
+
+def _frames(dev, s, c, size, seed=8):
+    """S distinct (C, H, W) f32 frames in [0, 1] with hard edges."""
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(0.0, 1.0, size=(s, c) + size).astype(np.float32)
+    img[:, :, size[0] // 4: size[0] // 2, size[1] // 3: 2 * size[1] // 3] = 0.95
+    return torch.from_numpy(img).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [1, 2, 3, 4])
+@pytest.mark.parametrize("streams", [1, 3, 8])
+def test_easu_scale_batched_matches_solo(cuda, streams, nc):
+    """K5's stream axis: S frames in one launch bit-equal to S solo
+    launches, within 1e-5 of the plain version under vmap, and
+    torch.func.vmap of ops/easu.easu_scale launching it once (the solo
+    kernel never)."""
+    imgs = _frames(cuda, streams, nc, (45, 67))
+    size = (90, 134)
+    plan = easu_ops.scale_plan((45, 67), size)
+    before = easu_scale_kernel.easu_scale_batched.launches
+    got = easu_scale_kernel.easu_scale_batched(imgs, size, plan)
+    solo = torch.stack([easu_scale_kernel.easu_scale(imgs[s].contiguous(), size, plan)
+                        for s in range(streams)])
+    solo_before = easu_scale_kernel.easu_scale.launches
+    via_vmap = torch.func.vmap(lambda im: easu_ops.easu_scale(im, size))(imgs)
+    assert easu_scale_kernel.easu_scale_batched.launches == before + 2
+    assert easu_scale_kernel.easu_scale.launches == solo_before
+    want = easu_ops.easu_scale_batched_plain(imgs, size)
+    torch.cuda.synchronize()
+    assert got.shape == (streams, nc, *size)
+    assert torch.equal(got, solo) and torch.equal(got, via_vmap)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndim", [3, 4])
+def test_easu_scale_batched_shared_source(cuda, ndim):
+    """A source every stream shares, at stream stride 0 (as the vmap rule
+    broadcasts an unbatched operand), for (S, C, H, W) and (S, H, W): each
+    stream's output bit-equal to the solo launch."""
+    img = _frames(cuda, 1, 3, (50, 70))[0]
+    if ndim == 3:
+        img = img[0].contiguous()
+    shared = img[None].expand(8, *img.shape)
+    size = (75, 105)
+    plan = easu_ops.scale_plan((50, 70), size)
+    got = easu_scale_kernel.easu_scale_batched(shared, size, plan)
+    solo = easu_scale_kernel.easu_scale(img, size, plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got[s], solo) for s in range(8))
+
+
+# (S, C, H, W): widths 1-7 (width 4 on the 16-byte row path, the others on
+# the scalar one), two 4K frames, and 4 channels over 8 streams.
+RCAS_BATCHED_SHAPES = [(3, 3, 41, w) for w in range(1, 8)] + [(2, 3, 2160, 3840), (8, 4, 37, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RCAS_BATCHED_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_rcas_batched_matches_solo(cuda, shape):
+    """K6's stream axis: S frames in one launch bit-equal to S solo launches
+    and within 1e-6 of rcas_plain under vmap, through torch.func.vmap of
+    ops/rcas.rcas (one launch, no solo launch); the same stack at a 4-byte
+    offset, and with a stream stride that is no multiple of 4 floats (both
+    on the scalar row path), bit-equal again."""
+    rng = np.random.default_rng(9)
+    imgs = torch.from_numpy(rng.uniform(0.0, 1.0, size=shape).astype(np.float32)).to(cuda)
+    before, solo_before = rcas_kernel.rcas_batched.launches, rcas_kernel.rcas.launches
+    got = torch.func.vmap(lambda im: rcas_ops.rcas(im, 0.8))(imgs)
+    assert rcas_kernel.rcas_batched.launches == before + 1
+    assert rcas_kernel.rcas.launches == solo_before
+    solo = torch.stack([rcas_kernel.rcas(imgs[s], 0.8) for s in range(shape[0])])
+    want = rcas_ops.rcas_batched_plain(imgs, 0.8)
+    shifted = torch.empty(imgs.numel() + 1, device=cuda)[1:].view(shape)
+    shifted.copy_(imgs)
+    block = imgs[0].numel()
+    padded = torch.empty((shape[0], block + 1), device=cuda)[:, :block].view(shape)
+    padded.copy_(imgs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, solo)
+    assert float((got - want).abs().max()) <= 1e-6
+    assert torch.equal(rcas_kernel.rcas_batched(shifted, 0.8), got)
+    assert torch.equal(rcas_kernel.rcas_batched(padded, 0.8), got)
+
+
+@pytest.mark.cuda
+def test_rcas_batched_shared_frame(cuda):
+    """A frame every stream shares, at stream stride 0: each output
+    bit-equal to the solo launch (the 16-byte path stays on: stride 0 is a
+    multiple of 4)."""
+    img = _frames(cuda, 1, 3, (64, 96))[0]
+    got = rcas_kernel.rcas_batched(img[None].expand(8, -1, -1, -1), 0.8)
+    solo = rcas_kernel.rcas(img, 0.8)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got[s], solo) for s in range(8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_warp_kernel_on_mesh_map(cuda, dtype):
+    """K1 on the dense (2, H, W) map of a 16x16 mesh (a homography plus a
+    smooth local bulge), as mesh mode's WarpField.apply feeds it: within
+    K1's bounds of the plain version (f32 atol 1e-4; u8 at most 1 LSB on
+    at most 0.1% of pixels), every block on its shared-memory path, and
+    `apply` launching the solo kernel once."""
+    from livevisionkit_tpu_torch.models.warp_field import WarpField
+
+    size = (272, 480)
+    img = _frames(cuda, 1, 3, size)[0]
+    if dtype == "uint8":
+        img = torch.clamp(img * 255.0 + 0.5, 0, 255).to(torch.uint8)
+    h = _similarity(1.01, 0.01, 3.0, -2.0, cuda)
+    field = WarpField.from_homography(h, (16, 16), size)
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, 16, device=cuda), torch.linspace(0, 1, 16, device=cuda),
+                            indexing="ij")
+    bulge = 0.01 * torch.sin(math.pi * yy) * torch.sin(math.pi * xx)
+    field = WarpField(offsets=field.offsets + torch.stack([bulge, -bulge]))
+    smap = field.sample_map(size)
+    paths = torch.zeros(2, dtype=torch.int32, device=cuda)
+    got = warp_kernel.warp(img, smap, fill=0.0, block_paths=paths)
+    want = remap_ops.remap_plain(img, smap, fill=0.0, filter_mode="easu")
+    before = warp_kernel.warp.launches
+    applied = field.apply(img, fill=0.0)
+    assert warp_kernel.warp.launches == before + 1
+    torch.cuda.synchronize()
+    used, over = paths.tolist()
+    assert used > 0 and over == 0, (used, over)
+    assert torch.equal(applied, got)
+    if dtype == "uint8":
+        d = (got.int() - want.int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+    else:
+        assert float((got - want).abs().max()) <= 1e-4

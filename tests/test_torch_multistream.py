@@ -5,10 +5,15 @@
   in interpret mode, and that the rule is entered once per batch.
 * `MultiStreamFilter.step` against ``jax.jit(jax.vmap(step))`` on a tiny
   filter over 3 streams, with a stall tick and drain bubbles, and a batched
-  JAX state carried into the port.
+  JAX state carried into the port; the same over the stabilizer ->
+  `ScalingFilter` chain and over the stabilizer in mesh mode.
+* The batched EASU scale and RCAS (the vmap rules of ``lvk::easu_scale``
+  and ``lvk::rcas``) entered once a tick, and an op with no batching rule
+  raising.
 * The driver `stream_multi` against a loop of the port's solo step.
 """
 
+import dataclasses
 import threading
 import time
 
@@ -312,9 +317,188 @@ def test_batched_state_carried_from_jax(runs):
     assert np.abs(state[0].scene_quality.numpy() - ref["scene"]).max() <= 1e-5
 
 
-def test_scaling_filter_is_not_batched_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        streams.MultiStreamFilter(lt.CompositeFilter((lt.ScalingFilter(),)), 2)
+# ------------------------------------------- the scaling chain and mesh mode
+
+OUT = (128, 192)  # the chain's 2x scaler output
+
+
+def _lockstep(fj, ft, n=N, seed=4):
+    """`n` live ticks of S fresh shaky clips through jax.jit(jax.vmap(step))
+    and the port's MultiStreamFilter; per tick the poses and both packages'
+    (valid, pixels, stabilizer correction) per stream."""
+    rng = np.random.default_rng(seed)
+    poses, clips = [], []
+    for _ in range(S):
+        base = fixtures.make_texture(240, 240, rng)
+        ps, _ = fixtures.shaky_path(n, rng, margin=60.0)
+        poses.append(ps)
+        clips.append([_yuv(fixtures.render_frame(base, p, SIZE)) for p in ps])
+    multi = streams.MultiStreamFilter(ft, S)
+    sj = jax.vmap(lambda _: fj.init(lj.FrameSpec(*SIZE, 3, YUV_J)))(jnp.arange(S))
+    st = multi.init(lt.FrameSpec(*SIZE, 3, YUV_T), device="cpu")
+    step = jax.jit(jax.vmap(lambda s, f: fj.step(s, f)))
+    valid = np.ones(S, bool)
+    jout, tout = [], []
+    for t in range(n):
+        px = np.stack([clips[s][t] for s in range(S)])
+        ts = np.full(S, t / 30.0, np.float32)
+        sj, oj = step(sj, lj.Frame(pixels=jnp.asarray(px), timestamp=jnp.asarray(ts),
+                                   valid=jnp.asarray(valid), format=YUV_J))
+        st, ot = multi.step(st, _port_frame(px, ts, valid))
+        jout.append(dict(valid=np.asarray(oj.valid), px=np.asarray(oj.pixels),
+                         corr=np.asarray(sj[0].correction.offsets)))
+        tout.append(dict(valid=ot.valid.numpy(), px=ot.pixels.numpy(),
+                         corr=st[0].correction.offsets.numpy()))
+    return dict(poses=poses, jax=jout, torch=tout)
+
+
+@pytest.fixture(scope="module")
+def chain_runs():
+    """The stabilizer -> 2x EASU + RCAS 0.8 chain, batched, in both packages."""
+    def chain(pkg, cfg):
+        return pkg.CompositeFilter((
+            pkg.StabilizationFilter(settings=_settings(cfg)),
+            pkg.ScalingFilter(cfg.ScalingFilterSettings(output_size=OUT, sharpness=0.8))))
+    return _lockstep(chain(lj, jcfg), chain(lt, tcfg))
+
+
+def test_batched_chain_matches_jax(chain_runs):
+    """MultiStreamFilter over stabilizer -> ScalingFilter against
+    jax.jit(jax.vmap(step)): per stream and tick equal valid flags,
+    (3, 128, 192) outputs, corrections within 2e-3, and valid frames
+    within max 4/255 and mean 1e-4 of JAX's (the chain bound of
+    tests/test_torch_scaling.py: 1 LSB of the u8 queue, amplified by RCAS
+    at most 4x)."""
+    for oj, ot in zip(chain_runs["jax"], chain_runs["torch"]):
+        assert (ot["valid"] == oj["valid"]).all()
+        assert ot["px"].shape == oj["px"].shape == (S, 3, *OUT)
+        assert np.abs(ot["corr"] - oj["corr"]).max() <= 2e-3
+        for s in np.flatnonzero(oj["valid"]):
+            d = np.abs(ot["px"][s] - oj["px"][s])
+            assert d.max() <= 4.0 / 255.0 and d.mean() <= 1e-4, (d.max(), d.mean())
+    assert sum(o["valid"].sum() for o in chain_runs["torch"]) == S * (N - PREDICTIVE)
+
+
+MESH = (5, 7)
+
+
+@pytest.fixture(scope="module")
+def mesh_runs():
+    """The stabilizer in mesh mode (a 5x7 mesh), batched, in both packages."""
+    def mesh(pkg, cfg):
+        s = _settings(cfg)
+        return pkg.CompositeFilter((pkg.StabilizationFilter(settings=dataclasses.replace(
+            s, tracker=dataclasses.replace(s.tracker, motion_resolution=MESH))),))
+    return _lockstep(mesh(lj, jcfg), mesh(lt, tcfg), seed=5)
+
+
+def _field_track(runs, key, s):
+    """Stream s: a scene point's input path and its output path, moved by
+    the correction field read bilinearly at the point."""
+    h, w = SIZE
+    pt = np.array([[130.0, 110.0]], np.float32)
+    x_in, y_out = [], []
+    for t, o in enumerate(runs[key]):
+        if not o["valid"][s]:
+            continue
+        xt = np.asarray(runs["poses"][s][t - PREDICTIVE].inverse().transform(jnp.asarray(pt)))[0]
+        c = o["corr"][s]
+        fy = np.clip(xt[1] / (h - 1), 0, 1) * (MESH[0] - 1)
+        fx = np.clip(xt[0] / (w - 1), 0, 1) * (MESH[1] - 1)
+        y0, x0 = min(int(fy), MESH[0] - 2), min(int(fx), MESH[1] - 2)
+        wy, wx = fy - y0, fx - x0
+        v = (c[:, y0, x0] * (1 - wy) * (1 - wx) + c[:, y0, x0 + 1] * (1 - wy) * wx
+             + c[:, y0 + 1, x0] * wy * (1 - wx) + c[:, y0 + 1, x0 + 1] * wy * wx)
+        x_in.append(xt)
+        y_out.append(xt - np.array([v[1] * (w - 1), v[0] * (h - 1)]))
+    return np.array(x_in), np.array(y_out)
+
+
+def test_batched_mesh_matches_jax(mesh_runs):
+    """MultiStreamFilter over the mesh stabilizer against
+    jax.jit(jax.vmap(step)), S = 3: per stream and tick equal valid flags
+    and (2, 5, 7) corrections within 2e-3; per stream, jitter and ATE of
+    the output path within 0.8-1.25x of JAX's (the ORACLE_TRAJECTORY_MESH
+    bound) and the output smoother than the input."""
+    for oj, ot in zip(mesh_runs["jax"], mesh_runs["torch"]):
+        assert (ot["valid"] == oj["valid"]).all()
+        assert ot["corr"].shape == (S, 2, *MESH)
+        assert np.abs(ot["corr"] - oj["corr"]).max() <= 2e-3
+    for s in range(S):
+        x_in, yj = _field_track(mesh_runs, "jax", s)
+        _, yt = _field_track(mesh_runs, "torch", s)
+        assert metrics.jitter(yt) < metrics.jitter(x_in)
+        ideal = metrics.smooth_path(x_in, sigma=4.0)
+        for mt, mj in ((metrics.jitter(yt), metrics.jitter(yj)),
+                       (metrics.ate(yt, ideal), metrics.ate(yj, ideal))):
+            assert 0.8 <= mt / mj <= 1.25, (s, mt, mj)
+
+
+@pytest.mark.parametrize("shared", ["none", "frame"])
+@pytest.mark.parametrize("op", ["easu_scale", "rcas"])
+def test_batched_scale_dispatch(monkeypatch, op, shared):
+    """vmap over the port's easu_scale (``lvk::easu_scale``) and rcas
+    (``lvk::rcas``) enters each batched rule ONCE a tick with the stacked
+    shape, never once per stream, as the warp's does; the batched op takes
+    a frame that every stream shares at stream stride 0, uncopied.  The
+    results equal the solo calls."""
+    from livevisionkit_tpu_torch.ops import easu as teasu
+    from livevisionkit_tpu_torch.ops import rcas as trcas
+
+    module, plain = (teasu, "easu_scale_batched_plain") if op == "easu_scale" else (
+        trcas, "rcas_batched_plain")
+    calls = []
+    orig = getattr(module, plain)
+
+    def spy(imgs, *args):
+        calls.append((tuple(imgs.shape), imgs.stride(0)))
+        return orig(imgs, *args)
+
+    monkeypatch.setattr(module, plain, spy)
+    imgs = torch.from_numpy(_batched_case(3)[0][:, :, :32, :48].copy())
+    if op == "easu_scale":
+        fn = lambda im: teasu.easu_scale(im, (64, 96), YUV_T)  # noqa: E731
+        batched_op = torch.ops.lvk.easu_scale_batched
+        extra = ([64, 96], YUV_T.value)
+    else:
+        fn = lambda im: trcas.rcas(im, 0.8)  # noqa: E731
+        batched_op = torch.ops.lvk.rcas_batched
+        extra = (0.8,)
+    if shared == "frame":
+        got = batched_op(imgs[1][None].expand(S, -1, -1, -1), *extra)
+        assert calls == [((S, *imgs.shape[1:]), 0)]
+        assert all(torch.equal(got[s], fn(imgs[1])) for s in range(S))
+    else:
+        multi = streams.MultiStreamFilter(lt.ScalingFilter(tcfg.ScalingFilterSettings(
+            output_size=(64, 96) if op == "easu_scale" else None, sharpness=0.8 if op == "rcas" else 0.0)), S)
+        frames = _port_frame(imgs.numpy(), np.zeros(S, np.float32), np.ones(S, bool))
+        for _ in range(2):  # two ticks: two batched calls
+            _, out = multi.step(multi.init(lt.FrameSpec(32, 48, 3, YUV_T), device="cpu"), frames)
+        assert calls == [(tuple(imgs.shape), imgs.stride(0))] * 2
+        assert torch.equal(out.pixels, torch.stack([fn(imgs[s]) for s in range(S)]))
+
+
+@torch.library.custom_op("lvktest::unbatched_double", mutates_args=())
+def _unbatched_double(x: torch.Tensor) -> torch.Tensor:
+    """An op with no vmap rule."""
+    return x * 2.0
+
+
+class _DoublingFilter(lt.VideoFilter):
+    def step(self, state, frame, *, drain=False):
+        return state, frame.with_pixels(_unbatched_double(frame.pixels))
+
+
+def test_op_without_batching_rule_raises():
+    """An op of the chain without a batching rule raises inside
+    MultiStreamFilter (the per-stream fallback is off) rather than running
+    once per stream."""
+    multi = streams.MultiStreamFilter(lt.CompositeFilter((lt.ScalingFilter(
+        tcfg.ScalingFilterSettings(output_size=None, sharpness=0.8)), _DoublingFilter())), S)
+    frames = _port_frame(np.random.default_rng(0).uniform(size=(S, 3, 16, 24)).astype(np.float32),
+                         np.zeros(S, np.float32), np.ones(S, bool))
+    with pytest.raises(RuntimeError):
+        multi.step(multi.init(lt.FrameSpec(16, 24, 3, YUV_T), device="cpu"), frames)
 
 
 # ---------------------------------------------------------------- the driver
