@@ -20,6 +20,13 @@ scaler to 4K (`CompositeFilter` of it and `ScalingFilter`), solo and over
 (`presets.stabilization_preset(model="field")`, a 16x16 mesh), solo, with
 the warp kernel checked on its dense sample map, and over 8 streams; and
 the multi-stream driver `stream_multi` over 8 in-memory 1080p BGR readers.
+Then the enhancement filters: the warp at four planes (colour + alpha,
+solo and over 8 streams) against its plain version; the 4K full chain
+(the mesh stabilizer, `DeblockingFilter` and `CASFilter` over a shaky
+2160x3840 clip with a blocky region); the deblocker at 1080p and 4K and
+CAS at 4K alone, each against the same op on a CPU copy; the 8-stream
+`vs + adb + cas` tick at 1080p; and the stabilizer's debug overlays on
+frames with alpha, solo beside the plain filter and over 8 streams.
 Each drive checks that its step went through its kernels once per frame
 (or tick) and that the outputs are right.  It also times the scaler alone
 at 1080p -> 4K.  Every failure raises.  The last line is a JSON object
@@ -239,13 +246,15 @@ def _launches() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
-def _shaky_render(dev, rng):
-    """A 60-frame 1080p YUV shaky camera path over a texture larger than
-    the frame: slow drift + per-frame jitter (px, rad).  Returns the frame
-    -> texture poses and a function rendering frame t's (3, H, W) pixels."""
+def _shaky_render(dev, rng, size=(H, W)):
+    """A 60-frame YUV shaky camera path (1080p by default) over a texture
+    larger than the frame: slow drift + per-frame jitter (px, rad).
+    Returns the frame -> texture poses and a function rendering frame t's
+    (3, h, w) pixels."""
     from livevisionkit_tpu_torch.ops import remap as remap_ops
 
-    tex = torch.from_numpy(_texture(H + 320, W + 320, rng)).to(dev)[None].contiguous()
+    h, w = size
+    tex = torch.from_numpy(_texture(h + 320, w + 320, rng)).to(dev)[None].contiguous()
     n = N_FRAMES
     tx = 100.0 + 1.0 * np.arange(n) + rng.uniform(-6.0, 6.0, n)
     ty = 100.0 + 0.5 * np.arange(n) + rng.uniform(-6.0, 6.0, n)
@@ -253,9 +262,9 @@ def _shaky_render(dev, rng):
     poses = [_similarity(1.0, ang[t], tx[t], ty[t], dev) for t in range(n)]
 
     def pixels(t):
-        y = remap_ops.remap(tex, poses[t].sample_map((H, W), inverse=False), fill=0.5,
+        y = remap_ops.remap(tex, poses[t].sample_map((h, w), inverse=False), fill=0.5,
                             filter_mode="bilinear")
-        return torch.cat([y, torch.full((2, H, W), 0.5, device=dev)]).contiguous()
+        return torch.cat([y, torch.full((2, h, w), 0.5, device=dev)]).contiguous()
 
     return poses, pixels
 
@@ -285,6 +294,24 @@ def _shaky_clips_u8(dev, rng):
     return poses, clips
 
 
+def _traced_kernels(prof, path: str) -> list[tuple[float, float]]:
+    """(start, end) in us of every device kernel of a profiler run, from
+    its chrome trace written to `path`, in order of start."""
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        return sorted((e["ts"], e["ts"] + e["dur"]) for e in json.load(fh)["traceEvents"]
+                      if e.get("cat") == "kernel")
+
+
+def _busy_us(kernels: list[tuple[float, float]]) -> float:
+    """The union of the kernel intervals, in us."""
+    busy, end = 0.0, kernels[0][0] if kernels else 0.0
+    for start, stop in kernels:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy
+
+
 def _profile(step, state, frames, path: str) -> None:
     """torch.profiler table and trace of five steady steps, and a line with
     the kernel launches and device busy time per step and the idle share of
@@ -299,18 +326,12 @@ def _profile(step, state, frames, path: str) -> None:
         torch.cuda.synchronize()
     with open(path + "_profile.txt", "w") as fh:
         fh.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
-    prof.export_chrome_trace(path + "_trace.json")
-    with open(path + "_trace.json") as fh:
-        kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in json.load(fh)["traceEvents"]
-                         if e.get("cat") == "kernel")
+    kernels = _traced_kernels(prof, path + "_trace.json")
     if not kernels:
         print(f"profile {os.path.basename(path)}: no device kernels traced", flush=True)
         return
-    busy, end = 0.0, kernels[0][0]
-    for start, stop in kernels:  # union of the kernel intervals, in us
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    span = end - kernels[0][0]
+    busy = _busy_us(kernels)
+    span = max(stop for _, stop in kernels) - kernels[0][0]
     n = len(steps)
     print(f"profile {os.path.basename(path)}: {len(kernels) / n:.1f} kernel launches per step, "
           f"{busy / n / 1e3:.4f} ms device busy per step, {100.0 * (1.0 - busy / span):.1f}% of "
@@ -930,41 +951,44 @@ def run_mesh(dev, rng, profile_dir: str | None) -> dict:
     return rep
 
 
-def _point_out(offsets: torch.Tensor, x: np.ndarray) -> np.ndarray:
+def _point_out(offsets: torch.Tensor, x: np.ndarray, size=(H, W)) -> np.ndarray:
     """Where a correction field (normalized (2, hm, wm) offsets, on the
-    CPU) puts the (x, y) point x of the delayed frame: a 2x2 field by its
-    exact homography, a mesh to first order, x - o(x) * (size - 1) with o
-    read bilinearly in the grid (as tools/oracle_pipeline.py reads it)."""
+    CPU) puts the (x, y) point x of the delayed frame of `size`: a 2x2
+    field by its exact homography, a mesh to first order, x - o(x) * (size
+    - 1) with o read bilinearly in the grid (as tools/oracle_pipeline.py
+    reads it)."""
     from livevisionkit_tpu_torch.models.warp_field import WarpField
 
+    h, w = size
     if tuple(offsets.shape[-2:]) == (2, 2):
         pt = torch.from_numpy(np.asarray(x, np.float32)[None])
-        return WarpField(offsets=offsets).to_homography((H, W)).transform(pt)[0].numpy()
+        return WarpField(offsets=offsets).to_homography(size).transform(pt)[0].numpy()
     c = offsets.numpy()
     gh, gw = c.shape[1:]
-    fy = float(np.clip(x[1] / (H - 1), 0.0, 1.0)) * (gh - 1)
-    fx = float(np.clip(x[0] / (W - 1), 0.0, 1.0)) * (gw - 1)
+    fy = float(np.clip(x[1] / (h - 1), 0.0, 1.0)) * (gh - 1)
+    fx = float(np.clip(x[0] / (w - 1), 0.0, 1.0)) * (gw - 1)
     y0, x0 = min(int(fy), gh - 2), min(int(fx), gw - 2)
     wy, wx = fy - y0, fx - x0
     v = (c[:, y0, x0] * (1 - wy) * (1 - wx) + c[:, y0, x0 + 1] * (1 - wy) * wx
          + c[:, y0 + 1, x0] * wy * (1 - wx) + c[:, y0 + 1, x0 + 1] * wy * wx)
-    return np.asarray(x) - np.array([v[1] * (W - 1), v[0] * (H - 1)])
+    return np.asarray(x) - np.array([v[1] * (w - 1), v[0] * (h - 1)])
 
 
-def _jitter(poses, corrections, delay: int) -> tuple[float, float]:
+def _jitter(poses, corrections, delay: int, size=(H, W)) -> tuple[float, float]:
     """Jitter of a scene point's path in the input and in the output: input
     x_t = P_t^-1(s); the output at step t shows frame t - delay, corrected
     (`_point_out`).  `poses` are one stream's and `corrections` its (2, hm,
-    wm) correction offsets per step, on the CPU."""
+    wm) correction offsets per step, on the CPU; frames are of `size`."""
     from livevisionkit_tpu_torch.models.homography import Homography
     from livevisionkit_tpu_torch.utils import metrics
 
-    s_pt = torch.tensor([[W / 2 + 160.0, H / 2 + 160.0]])
+    h, w = size
+    s_pt = torch.tensor([[w / 2 + 160.0, h / 2 + 160.0]])
     x_in, y_out = [], []
     for t in range(delay, len(corrections)):
         x = Homography(m=poses[t - delay].m.cpu()).inverse().transform(s_pt)[0].numpy()
         x_in.append(x)
-        y_out.append(_point_out(corrections[t], x))
+        y_out.append(_point_out(corrections[t], x, size))
     return metrics.jitter(np.array(x_in)), metrics.jitter(np.array(y_out))
 
 
@@ -1188,6 +1212,462 @@ def run_chain(dev, rng, profile_dir: str | None) -> dict:
             "scaler_gpu_ms": sc_gpu_ms, "scaler_wall_ms": sc_wall_ms, "scaler_launches": sc_launches}
 
 
+# ------------------------------------------------------------------------
+# The enhancement filters: deblocker, CAS, alpha planes and debug overlays.
+
+UHD = OUT  # the 4K full chain's frames: 2160 x 3840 YUV
+ADB_CAS_TICKS = 30  # ticks of the 8-stream vs + adb + cas phase
+DEBUG_STEPS = 15  # steps of the debug-overlay phases (outputs from step 10)
+BLOCK = 16  # the deblocker's macroblock
+STEP_LSB = 2  # the blocky region's steps, in 8-bit levels
+
+
+def _staircase(size, dev) -> tuple[int, torch.Tensor]:
+    """The blocky region of a frame: from column x0 (two thirds across, on a
+    16-pixel boundary) to the right edge, a horizontal staircase of 16-wide
+    steps STEP_LSB levels apart on the u8 grid, as block-coded video decodes
+    a smooth gradient.  Its blocks are flat (keep 0), the textured rest is
+    not (keep 1).  Returns x0 and the (w - x0,) row."""
+    h, w = size
+    x0 = (2 * w // 3) // BLOCK * BLOCK
+    steps = torch.div(torch.arange(w - x0, device=dev), BLOCK, rounding_mode="floor")
+    return x0, (51.0 + STEP_LSB * steps.to(torch.float32)) / 255.0
+
+
+def _blocky_frame(pixels: torch.Tensor, x0: int, stair: torch.Tensor) -> torch.Tensor:
+    """u8 YUV frame: the rendered (3, h, w) pixels with the staircase over
+    the luma right of x0, quantized."""
+    px = pixels.clone()
+    px[0, :, x0:] = stair
+    return torch.clamp(px * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+
+
+def _blockiness(px: torch.Tensor, x0: int) -> torch.Tensor:
+    """The blocky region's step height (0-d, on the device): the mean over
+    its rows of the row's largest horizontal luma difference, 64 pixels in
+    from the region's and the frame's edges (the stabilizer moves the region
+    by its correction).  2/255 on the input staircase; a smoothed step is
+    spread over several pixels and lower."""
+    h, w = px.shape[-2:]
+    y = px[0, 64:h - 64, x0 + 64:w - 64]
+    return (y[:, 1:] - y[:, :-1]).abs().amax(dim=1).mean()
+
+
+def run_full_chain(dev, rng, profile_dir: str | None) -> dict:
+    """N_FRAMES frames of a shaky 2160x3840 YUV clip with a blocky region
+    (u8 on the card) through the JAX package's `4k_full_chain_fused`
+    (tools/bench_matrix.py:141-156): the mesh stabilizer
+    (`stabilization_preset(model="field")`), the deblocker and CAS in one
+    CompositeFilter.  One K1 (on the mesh's dense 4K map) and one K3
+    launch a step, valid flags from the delay, finite
+    outputs in [0, 1], the tracker ok on >= 90% of frames, output jitter
+    below input jitter, and the blocky region's steps below 0.7x the input's
+    (`_blockiness`).  The deblocker's keep map of the first frame is
+    neither all 0 nor all 1.  Then K1 on the last dense map at 4K against
+    plain, with its device-memory tiles."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.ops import remap as remap_ops
+    from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
+    from livevisionkit_tpu_torch.presets import stabilization_preset
+
+    h, w = UHD
+    poses, pixels = _shaky_render(dev, rng, UHD)
+    x0, stair = _staircase(UHD, dev)
+    clip = torch.empty((N_FRAMES, 3, h, w), dtype=torch.uint8, device=dev)
+    for t in range(N_FRAMES):
+        clip[t] = _blocky_frame(pixels(t), x0, stair)
+    fmt = lvk.PixelFormat.YUV
+    # Timestamps and the valid flag are on the card before the drive: a
+    # Python number made a device tensor inside it is a synchronizing copy.
+    stamps = torch.arange(N_FRAMES, dtype=torch.float32, device=dev) / 30.0
+    live = torch.ones((), dtype=torch.bool, device=dev)
+
+    def frame(t):
+        return lvk.Frame(pixels=clip[t].to(torch.float32) * (1.0 / 255.0), timestamp=stamps[t],
+                         valid=live, format=fmt)
+
+    influence = lvk.DeblockingFilter().influence_map(frame(0))[::BLOCK, ::BLOCK]
+    smoothed = float((influence > 0.5).float().mean())
+    assert 0.05 <= smoothed <= 0.95, f"keep map smooths {smoothed:.3f} of the blocks"
+    blocky_in = float(torch.stack([_blockiness(clip[t].to(torch.float32) / 255.0, x0)
+                                   for t in range(N_FRAMES)]).mean())
+
+    filt = lvk.CompositeFilter((lvk.StabilizationFilter(settings=stabilization_preset(model="field")),
+                                lvk.DeblockingFilter(), lvk.CASFilter()))
+    n, delay = N_FRAMES, filt.delay
+    spec = lvk.FrameSpec(h, w, 3, fmt)
+    filt.step(filt.init(spec, device=dev), frame(0))  # fills the per-shape caches
+    state = filt.init(spec, device=dev)
+    torch.cuda.synchronize()
+    valids, finite, lo, hi, corrections, stabilities, blocky = [], [], [], [], [], [], []
+
+    def keep(t, st, out):
+        assert out.pixels.shape == (3, h, w)
+        valids.append(out.valid)
+        finite.append(torch.isfinite(out.pixels).all())
+        lo.append(out.pixels.amin())
+        hi.append(out.pixels.amax())
+        corrections.append(st[0].correction.offsets)
+        stabilities.append(st[0].stability)
+        blocky.append(_blockiness(out.pixels, x0))
+
+    _reset_launches()
+    state, gpu_ms, wall_ms = _drive(filt, state, (frame(t) for t in range(n)), keep, n=n)
+    launches = _launches()
+    assert launches == _want(warp=n, lk_track=n), f"full chain: kernel launches {launches}"
+    valid = [bool(v) for v in valids]
+    assert valid == [t >= delay for t in range(n)], f"full chain: valid flags {valid}"
+    assert all(bool(f) for f in finite), "full chain: non-finite output pixels"
+    lo_all, hi_all = min(float(v) for v in lo), max(float(v) for v in hi)
+    assert -1e-5 <= lo_all and hi_all <= 1.0 + 1e-5, f"full chain: outputs span [{lo_all}, {hi_all}]"
+    ok = [float(v) > 0.0 for v in stabilities[1:]]
+    ok_frac = sum(ok) / len(ok)
+    assert ok_frac >= 0.9, f"full chain: tracker ok on {ok_frac:.3f} < 0.9 of frames"
+    j_in, j_out = _jitter(poses, torch.stack(corrections).cpu(), delay, UHD)
+    assert j_out < j_in, f"full chain: output jitter {j_out:.3f} px not below input {j_in:.3f} px"
+    blocky_out = float(torch.stack(blocky[delay:]).mean())
+    assert blocky_out < 0.7 * blocky_in, (
+        f"full chain: blocky region's steps {blocky_out * 255:.3f} / 255, input {blocky_in * 255:.3f}")
+    print(f"full_chain: {n} frames {h}x{w} -> mesh stabilizer + deblock + CAS, valid from frame "
+          f"{delay}, tracker ok on {ok_frac:.3f} of frames, jitter {j_in:.3f} -> {j_out:.3f} px, "
+          f"outputs in [{lo_all:.6f}, {hi_all:.6f}], keep map smooths {smoothed:.3f} of the first "
+          f"frame's blocks, blocky region's steps {blocky_in * 255:.3f} -> {blocky_out * 255:.3f} "
+          f"/ 255, launches {launches}", flush=True)
+    print(f"full_chain: {gpu_ms:.4f} ms/frame on the device (CUDA events over the last "
+          f"{_timed(n)} frames), {wall_ms:.4f} ms/frame host wall clock; budget 16.6 ms "
+          f"(4K60)", flush=True)
+    if profile_dir:
+        _profile(filt.step, state, [frame(t) for t in range(5)], os.path.join(profile_dir, "full_chain"))
+
+    smap = state[0].correction.sample_map(UHD).contiguous()
+    img_u8 = clip[-1].contiguous()
+    used, over = _paths(lambda c: warp_kernel.warp(img_u8, smap, block_paths=c), dev)
+    img_f = img_u8.to(torch.float32) / 255.0
+    err_f = float((warp_kernel.warp(img_f, smap) - remap_ops.remap_plain(
+        img_f, smap, filter_mode="easu")).abs().max())
+    assert err_f <= 1e-4, f"4K dense map: f32 warp differs from plain by {err_f} > 1e-4"
+    max_lsb, frac = _u8_diff(warp_kernel.warp(img_u8, smap),
+                             remap_ops.remap_plain(img_u8, smap, filter_mode="easu"))
+    assert max_lsb <= 1 and frac <= 1e-3, f"4K dense map: u8 warp max {max_lsb} LSB on {frac:.2e}"
+    k1_ms = _median_ms(lambda: warp_kernel.warp(img_u8, smap))
+    print(f"K1 warp easu on the full chain's dense 4K map: {over} of {used} blocks gather from "
+          f"device memory; f32 max|err| {err_f:.3e}; u8 max {max_lsb} LSB on {frac:.2e} of pixels; "
+          f"kernel {k1_ms:.4f} ms (u8 3x{h}x{w})", flush=True)
+    return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms, "jitter": (j_in, j_out),
+            "blockiness": (blocky_in, blocky_out), "k1_used": used, "k1_over": over, "k1_ms": k1_ms,
+            "frame0": frame(0), "x0": x0}
+
+
+def _kernel_launches(fn, calls: int = 3) -> tuple[float, float]:
+    """(kernel launches, device busy ms) per call of fn, from a
+    torch.profiler trace of `calls` calls (written under build/ and
+    removed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    kernels = _traced_kernels(prof, path)
+    os.remove(path)
+    return len(kernels) / calls, _busy_us(kernels) / 1e3 / calls
+
+
+def _deblock_near(frame, block: int, levels: int) -> torch.Tensor:
+    """(blocks) bool: the deblocker's blocks, over the edge-padded frame,
+    whose 255 measure (on the frame's device) lies within 1e-4 of an
+    integer 1..levels, where the floor may go either way."""
+    import torch.nn.functional as F
+
+    from livevisionkit_tpu_torch.filters import deblocking
+    from livevisionkit_tpu_torch.ops import color
+
+    _, h, w = frame.pixels.shape
+    ph, pw = -(-h // block) * block, -(-w // block) * block
+    px = F.pad(frame.pixels[None], (0, pw - w, 0, ph - h), mode="replicate")[0]
+    m = deblocking.block_measure(color.luma(px, frame.format), block) * 255.0
+    k = torch.round(m)
+    return ((m - k).abs() < 1e-4) & (k >= 1) & (k <= levels)
+
+
+def _grown(near: torch.Tensor, block: int, r: int, size) -> torch.Tensor:
+    """(h, w) bool: the pixels within r of a near block."""
+    px = near.repeat_interleave(block, 0).repeat_interleave(block, 1)[None, None].float()
+    grown = torch.nn.functional.max_pool2d(px, 2 * r + 1, stride=1, padding=r)[0, 0] > 0
+    return grown[:size[0], :size[1]]
+
+
+def check_filters_alone(dev, rng, frame_4k) -> dict:
+    """The deblocker at 1080p (1080 % 16 = 8: the edge pad and the partial
+    border) and at 4K, and CAS at 4K, each alone on a blocky YUV frame:
+    ms/frame (CUDA events behind the device spin), kernel launches and busy
+    ms per frame (profiler), and the byte bound (the frame read once and
+    written once, f32, over 3.35 TB/s).  Each against the same op on a CPU
+    copy of its input: CAS within 1e-6; the deblocker's per-block keep
+    equal on every block whose 255 measure is not within 1e-4 of an integer
+    1..L, its influence map within 1e-6 and its output within 1e-5 away
+    from them (half a block, the keep upsample's reach)."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.filters import deblocking
+    from livevisionkit_tpu_torch.ops import color
+
+    _, pixels = _shaky_render(dev, rng)
+    x0, stair = _staircase((H, W), dev)
+    frame_hd = lvk.Frame.create(_blocky_frame(pixels(0), x0, stair).to(torch.float32) / 255.0,
+                                fmt=lvk.PixelFormat.YUV)
+    deblock, cas = lvk.DeblockingFilter(), lvk.CASFilter()
+    s = deblock.settings
+    report = {}
+    for name, filt, frame in (("deblock_1080p", deblock, frame_hd), ("deblock_4k", deblock, frame_4k),
+                              ("cas_4k", cas, frame_4k)):
+        _, out = filt.step((), frame)
+        cpu_frame = lvk.Frame.create(frame.pixels.cpu(), fmt=frame.format)
+        _, want = filt.step((), cpu_frame)
+        got = out.pixels.cpu()
+        size = tuple(frame.pixels.shape[-2:])
+        if filt is cas:
+            err = float((got - want.pixels).abs().max())
+            assert err <= 1e-6, f"{name}: differs from the CPU by {err} > 1e-6"
+            extra = ""
+        else:
+            near = _deblock_near(cpu_frame, s.block_size, s.detection_levels)
+            away = ~_grown(near, s.block_size, s.block_size // 2, size)
+            err = float((got - want.pixels).abs()[:, away].max())
+            assert err <= 1e-5, f"{name}: differs from the CPU by {err} > 1e-5 away from near blocks"
+            fh, fw = size[0] // s.block_size * s.block_size, size[1] // s.block_size * s.block_size
+            keep = [deblocking.keep_blocks(deblocking.block_measure(
+                color.luma(f.pixels[:, :fh, :fw], f.format), s.block_size), s.detection_levels).cpu()
+                for f in (frame, cpu_frame)]
+            near_c = _deblock_near(lvk.Frame.create(cpu_frame.pixels[:, :fh, :fw], fmt=frame.format),
+                                   s.block_size, s.detection_levels)
+            assert torch.equal(keep[0][~near_c], keep[1][~near_c]), f"{name}: keep blocks differ"
+            inf_err = float((deblock.influence_map(frame).cpu() - deblock.influence_map(cpu_frame))
+                            .abs()[:fh, :fw][~_grown(near_c, s.block_size, s.block_size // 2, (fh, fw))]
+                            .max())
+            assert inf_err <= 1e-6, f"{name}: influence map differs from the CPU by {inf_err}"
+            smoothed = float((keep[1] < 1.0).float().mean())
+            extra = (f"; {int(near.sum())} of {near.numel()} blocks near an integer 255 measure "
+                     f"(excluded); influence map max|err| {inf_err:.3e}; {smoothed:.3f} of the "
+                     f"blocks blend in the smooth frame")
+        step = lambda f=filt, fr=frame: f.step((), fr)  # noqa: E731
+        ms = _median_ms(step)
+        launches, busy_ms = _kernel_launches(step)
+        bound_ms, bound_by = _bound(2 * 4 * frame.pixels.numel(), 0)
+        print(f"{name}: 3x{size[0]}x{size[1]} f32, max|err| against the CPU {err:.3e}{extra}; "
+              f"{ms:.4f} ms/frame (CUDA events, median of {RUNS}), {launches:.0f} kernel launches, "
+              f"{busy_ms:.4f} ms device busy a frame, bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
+        report[name] = {"err": err, "ms": ms, "launches": launches, "busy_ms": busy_ms,
+                        "bound_ms": bound_ms}
+    return report
+
+
+def _c4_frame(dev, rng) -> torch.Tensor:
+    """A (4, 1080, 1920) u8 YUV + alpha frame: a texture's luma, chroma
+    planes, and another texture as alpha."""
+    luma = torch.from_numpy(_texture(H, W, rng)).to(dev)
+    alpha = torch.from_numpy(_texture(H, W, rng)).to(dev)
+    img_f = torch.stack([luma, 0.25 + 0.5 * luma.flip(0), 0.75 - 0.5 * luma.flip(1), alpha])
+    return torch.clamp(img_f * 255.0 + 0.5, 0, 255).to(torch.uint8).contiguous()
+
+
+def check_warp_c4(dev, rng) -> tuple[dict, dict]:
+    """K1 and K2 at four planes, the stabilizer's colour + alpha gather: a
+    1080p YUV + alpha frame on the flagship's stabilization map and on a
+    16x16 mesh's dense map, u8 and f32, against the plain version (f32
+    within 1e-4, u8 at most 1 LSB on at most 0.1% of pixels), its colour
+    planes against the 3-plane launch (EASU's luma is plane 0, never
+    alpha); K2 over STREAMS such frames bit-equal to STREAMS solo K1
+    launches and against plain.  Times and bounds."""
+    from livevisionkit_tpu_torch.models.warp_field import WarpField
+    from livevisionkit_tpu_torch.ops import remap as remap_ops
+    from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
+
+    img_u8 = _c4_frame(dev, rng)
+    img_f = img_u8.to(torch.float32) / 255.0
+    offsets = torch.from_numpy(rng.uniform(-0.003, 0.003, size=(2, 16, 16)).astype(np.float32)).to(dev)
+    maps = {"flagship": _similarity(1.01, math.radians(0.5), 12.0, -7.0, dev).sample_map((H, W)),
+            "mesh": WarpField(offsets=offsets).sample_map((H, W))}
+    k1 = {}
+    for name, smap in maps.items():
+        smap = smap.contiguous()
+        err_f = float((warp_kernel.warp(img_f, smap) - remap_ops.remap_plain(
+            img_f, smap, filter_mode="easu")).abs().max())
+        assert err_f <= 1e-4, f"K1 C=4 on the {name} map: f32 differs from plain by {err_f}"
+        got = warp_kernel.warp(img_u8, smap)
+        max_lsb, frac = _u8_diff(got, remap_ops.remap_plain(img_u8, smap, filter_mode="easu"))
+        assert max_lsb <= 1 and frac <= 1e-3, f"K1 C=4 on the {name} map: u8 max {max_lsb} on {frac:.2e}"
+        colour = warp_kernel.warp(img_u8[:3].contiguous(), smap)
+        c_lsb, c_frac = _u8_diff(got[:3], colour)
+        assert c_lsb <= 1 and c_frac <= 1e-3, f"K1 C=4 colour planes differ from C=3 by {c_lsb} LSB"
+        used, over = _paths(lambda c, m=smap: warp_kernel.warp(img_u8, m, block_paths=c), dev)
+        ms = _median_ms(lambda m=smap: warp_kernel.warp(img_u8, m))
+        plain_ms = _median_ms(lambda m=smap: remap_ops.remap_plain(img_u8, m, filter_mode="easu"), runs=5)
+        n_easu, n_src = _easu_work(smap, H, W)
+        bound_ms, bound_by = _bound(img_u8.numel() * 2 + smap.numel() * 4, _easu_ops(n_easu, n_src, 4))
+        print(f"K1 warp easu C=4 (YUV + alpha u8 4x{H}x{W}) on the {name} map: f32 max|err| "
+              f"{err_f:.3e}; u8 max {max_lsb} LSB on {frac:.2e} of pixels; colour planes within "
+              f"{c_lsb} LSB of the C=3 launch on {c_frac:.2e}; {over} of {used} blocks gather from "
+              f"device memory; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 5), bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        k1[name] = {"max_abs_err": max_lsb, "f32_err": err_f, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+
+    imgs = _stream_stack(img_u8).contiguous()
+    sims = [(1.0 + 0.004 * s, math.radians(0.25 * (s - 3)), 6.0 * s - 20.0, 9.0 - 3.0 * s)
+            for s in range(STREAMS)]
+    smaps = torch.stack([_similarity(*p, dev).sample_map((H, W)) for p in sims]).contiguous()
+    got = warp_kernel.warp_batched(imgs, smaps)
+    solo = lambda: [warp_kernel.warp(imgs[s], smaps[s]) for s in range(STREAMS)]  # noqa: E731
+    assert all(torch.equal(got[s], o) for s, o in enumerate(solo())), "K2 C=4 is not bit-equal to solo K1"
+    max_lsb, frac = _u8_diff(got, remap_ops.remap_batched_plain(imgs, smaps, filter_mode="easu"))
+    assert max_lsb <= 1 and frac <= 1e-3, f"K2 C=4: u8 max {max_lsb} LSB on {frac:.2e}"
+    ms = _median_ms(lambda: warp_kernel.warp_batched(imgs, smaps))
+    solo_ms = _median_ms(solo)
+    plain_ms = _median_ms(lambda: remap_ops.remap_batched_plain(imgs, smaps, filter_mode="easu"), runs=3)
+    n_easu, n_src = _easu_work(smaps, H, W)
+    bound_ms, bound_by = _bound(imgs.numel() * 2 + smaps.numel() * 4, _easu_ops(n_easu, n_src, 4))
+    print(f"K2 warp_batched easu C=4: {STREAMS}x4x{H}x{W} u8 in one launch, bit-equal to {STREAMS} "
+          f"solo K1; u8 max {max_lsb} LSB on {frac:.2e} of pixels; kernel {ms:.4f} ms, {STREAMS} x "
+          f"solo K1 {solo_ms:.4f} ms, plain (vmap) {plain_ms:.4f} ms (median of 3), bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    k2 = {"max_abs_err": max_lsb, "ms": ms, "plain_ms": plain_ms, "solo_ms": solo_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by}
+    return k1, k2
+
+
+def run_adb_cas_multistream(dev, poses, clips, profile_dir: str | None) -> dict:
+    """STREAMS flagship streams through the JAX package's multi-chip dry
+    run chain `vs + adb + cas` (__graft_entry__.py:94-128) for ADB_CAS_TICKS
+    ticks: one K2 and one K3 launch a tick."""
+    import livevisionkit_tpu_torch as lvk
+
+    n = ADB_CAS_TICKS
+    chain = lvk.CompositeFilter((lvk.flagship_filter(), lvk.DeblockingFilter(), lvk.CASFilter()))
+    return run_streams("adb_cas_multistream", chain, dev, poses, clips, n,
+                       _want(warp_batched=n, lk_track=n), profile_dir)
+
+
+class _Lockstep:
+    """Two filters stepped on the same frames, each on its own state."""
+
+    def __init__(self, a, b):
+        self.a, self.b = a, b
+
+    def step(self, state, frame):
+        sa, oa = self.a.step(state[0], frame)
+        sb, ob = self.b.step(state[1], frame)
+        return (sa, sb), (oa, ob)
+
+
+def _overlay_mask(px: torch.Tensor, fmt) -> torch.Tensor:
+    """(h, w) bool: the pixels holding a stabilizer overlay's colour."""
+    from livevisionkit_tpu_torch.ops import drawing
+
+    mask = torch.zeros(px.shape[-2:], dtype=torch.bool, device=px.device)
+    for name in ("green", "magenta", "yellow"):
+        col = drawing.colour(name, fmt)
+        mask |= torch.stack([px[c] == col[c] for c in range(len(col))]).all(0)
+    return mask
+
+
+def run_debug(dev, rng, clips) -> dict:
+    """The stabilizer's test mode with alpha planes at 1080p, with
+    synchronizing calls made errors: `flagship_filter()` with debug=True
+    beside the plain one from the same seed on YUV + alpha frames for
+    DEBUG_STEPS steps (one K1 a step each, at four planes): pixels differ
+    only where an overlay is drawn, and there hold its colour, and both
+    carry the same warped alpha; then the debug filter over STREAMS streams
+    with alpha (one K2 at four planes a tick)."""
+    import dataclasses
+
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.parallel.streams import MultiStreamFilter
+
+    fmt = lvk.PixelFormat.YUV
+    plain = lvk.flagship_filter()
+    debug = dataclasses.replace(plain, debug=True)
+    _, pixels = _shaky_render(dev, rng)
+    frames = []
+    for t in range(DEBUG_STEPS):
+        px = pixels(t)
+        frames.append(lvk.Frame.create(px, timestamp=t / 30.0, fmt=fmt, alpha=px[0].flip(1).contiguous()))
+    spec = lvk.FrameSpec(H, W, 3, fmt, has_alpha=True)
+    pair = _Lockstep(debug, plain)
+    pair.step((debug.init(spec, device=dev), plain.init(spec, device=dev)), frames[0])
+    state = (debug.init(spec, device=dev), plain.init(spec, device=dev))
+    torch.cuda.synchronize()
+    valids, outside, changed, drawn, alpha_diff = [], [], [], [], []
+
+    def keep(t, st, out):
+        od, op = out
+        valids.append(od.valid & op.valid)
+        overlay = _overlay_mask(od.pixels, fmt)
+        diff = (od.pixels - op.pixels).abs().amax(0)
+        outside.append(((diff > 0) & ~overlay).sum())
+        changed.append((diff > 0).sum())
+        drawn.append(overlay.sum())
+        alpha_diff.append((od.alpha - op.alpha).abs().max())
+
+    _reset_launches()
+    _, gpu_ms, wall_ms = _drive(pair, state, frames, keep)
+    solo_launches = _launches()
+    n = DEBUG_STEPS
+    assert solo_launches == _want(warp=2 * n, lk_track=2 * n), f"debug: launches {solo_launches}"
+    live = [t for t, v in enumerate(valids) if bool(v)]
+    assert live == list(range(plain.delay, n)), f"debug: valid steps {live}"
+    bad = sum(int(outside[t]) for t in live)
+    assert bad == 0, f"debug: {bad} pixels off the overlays differ from the plain filter"
+    assert all(int(changed[t]) > 0 and int(drawn[t]) > 0 for t in live), "debug: no overlay drawn"
+    a_err = max(float(alpha_diff[t]) for t in live)
+    assert a_err == 0.0, f"debug: alpha differs from the plain filter's by {a_err}"
+    print(f"debug: {n} steps of the flagship filter with debug=True beside the plain one, 1080p "
+          f"YUV + alpha; overlays on {min(int(drawn[t]) for t in live)}-"
+          f"{max(int(drawn[t]) for t in live)} pixels a frame, 0 pixels off them differ, alpha "
+          f"equal; launches {solo_launches} (K1 at 4 planes); {gpu_ms:.4f} / {wall_ms:.4f} ms a "
+          f"step pair (device / host)", flush=True)
+
+    multi = MultiStreamFilter(debug, STREAMS)
+    live_s = torch.ones(STREAMS, dtype=torch.bool, device=dev)
+
+    def frame(t):
+        px = clips[:, t].to(torch.float32) * (1.0 / 255.0)
+        return lvk.Frame(pixels=px, timestamp=torch.full((STREAMS,), t / 30.0, device=dev), valid=live_s,
+                         alpha=px[:, 0].flip(-1).contiguous(), format=fmt)
+
+    multi.step(multi.init(spec, device=dev), frame(0))
+    mstate = multi.init(spec, device=dev)
+    torch.cuda.synchronize()
+    mvalid, mdrawn, alpha_lo, alpha_hi = [], [], [], []
+
+    def mkeep(t, st, out):
+        assert out.alpha.shape == (STREAMS, H, W)
+        mvalid.append(out.valid)
+        mdrawn.append(torch.stack([_overlay_mask(out.pixels[s], fmt).sum() for s in range(STREAMS)]))
+        alpha_lo.append(out.alpha.amin())
+        alpha_hi.append(out.alpha.amax())
+
+    _reset_launches()
+    _, tick_gpu_ms, tick_wall_ms = _drive(multi, mstate, (frame(t) for t in range(n)), mkeep, n=n)
+    multi_launches = _launches()
+    assert multi_launches == _want(warp_batched=n, lk_track=n), f"debug x{STREAMS}: {multi_launches}"
+    v = torch.stack(mvalid).cpu()
+    assert (v[plain.delay:].all() and not v[:plain.delay].any()), f"debug x{STREAMS}: valid {v}"
+    assert bool((torch.stack(mdrawn)[plain.delay:] > 0).all()), f"debug x{STREAMS}: overlays missing"
+    lo, hi = float(torch.stack(alpha_lo).min()), float(torch.stack(alpha_hi).max())
+    assert 0.0 <= lo and hi <= 1.0, f"debug x{STREAMS}: alpha spans [{lo}, {hi}]"
+    print(f"debug x{STREAMS}: {n} ticks of {STREAMS} 1080p YUV + alpha streams with debug=True, "
+          f"overlays on every stream's valid frames, alpha in [{lo:.4f}, {hi:.4f}], launches "
+          f"{multi_launches} (K2 at 4 planes); {tick_gpu_ms:.4f} / {tick_wall_ms:.4f} ms a tick "
+          f"(device / host)", flush=True)
+    return {"solo_launches": solo_launches, "multi_launches": multi_launches, "gpu_ms": gpu_ms,
+            "wall_ms": wall_ms, "tick_gpu_ms": tick_gpu_ms, "tick_wall_ms": tick_wall_ms}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
@@ -1239,6 +1719,14 @@ def main() -> int:
     me = run_mesh(dev, rng, args.profile)
     mex = run_mesh_multistream(dev, poses, clips, args.profile)
     sm = run_stream_multi(dev, clips)
+    # The enhancement filters, on a generator of their own so that the
+    # phases above see the data they always saw.
+    rng_e = np.random.default_rng(1)
+    k1_c4, k2_c4 = check_warp_c4(dev, rng_e)
+    fc = run_full_chain(dev, rng_e, args.profile)
+    alone = check_filters_alone(dev, rng_e, fc.pop("frame0"))
+    adb = run_adb_cas_multistream(dev, poses, clips, args.profile)
+    dbg = run_debug(dev, rng_e, clips)
     del clips
 
     def entry(name, source, replaces, launches, rep, library_ms=None):
@@ -1254,14 +1742,23 @@ def main() -> int:
     # scaler alone is part of the chain's report).  No single PyTorch call
     # computes the EASU warp or upscale, LK or RCAS: library_ms is null; the
     # bilinear warp's grid_sample time is printed above.
-    paths = (sl, ms, ch, chx, me, mex)
+    # The debug phase's K1 and K2 launches are all at four planes (colour +
+    # alpha): the C = 4 rows.
+    paths = (sl, ms, ch, chx, me, mex, fc, adb)
+    debug_lk = dbg["solo_launches"]["lk_track"]
+    debug_lk_x8 = dbg["multi_launches"]["lk_track"]
     easu_2x = dict(easu_rep[OUT], max_abs_err=max(r["max_abs_err"] for r in easu_rep.values()))
     kernels = [
         entry("warp", "warp.cu", "warp.py:312", launched("warp", *paths), warp_rep["easu"]),
         entry("warp_batched", "warp.cu", "warp.py:829", launched("warp_batched", *paths),
               warp_b_rep["easu"]),
-        entry("lk_track", "lk.cu", "lk.py:255", launched("lk_track", sl, ch, me), lk_rep["lk_track"]),
-        entry("lk_track_x8", "lk.cu", "lk.py:255", launched("lk_track", ms, chx, mex), lk_b_rep),
+        entry("warp_c4", "warp.cu", "warp.py:312", dbg["solo_launches"]["warp"], k1_c4["flagship"]),
+        entry("warp_batched_c4", "warp.cu", "warp.py:829", dbg["multi_launches"]["warp_batched"],
+              k2_c4),
+        entry("lk_track", "lk.cu", "lk.py:255", launched("lk_track", sl, ch, me, fc) + debug_lk,
+              lk_rep["lk_track"]),
+        entry("lk_track_x8", "lk.cu", "lk.py:255", launched("lk_track", ms, chx, mex, adb) + debug_lk_x8,
+              lk_b_rep),
         # K4 is K3's n_levels = 1 call.
         entry("lk_level", "lk.cu", "lk.py:201", launched("lk_level", *paths), lk_rep["lk_level"]),
         entry("easu_scale", "easu_scale.cu", "easu_scale.py:264",
@@ -1281,7 +1778,12 @@ def main() -> int:
           f" | mesh {me['gpu_ms']:.4f} / {me['wall_ms']:.4f}"
           f" | {STREAMS}-stream mesh tick {mex['gpu_ms']:.4f} / {mex['wall_ms']:.4f}"
           f" | stream_multi {sm['fps']:.1f} frames/s | K3 x{STREAMS} {lk_b_rep['ms']:.4f} ms"
-          f" | K5 x{STREAMS} {easu_b_rep['ms']:.4f} ms | K6 x{STREAMS} {rcas_b_rep['ms']:.4f} ms",
+          f" | K5 x{STREAMS} {easu_b_rep['ms']:.4f} ms | K6 x{STREAMS} {rcas_b_rep['ms']:.4f} ms"
+          f" | 4K full chain {fc['gpu_ms']:.4f} / {fc['wall_ms']:.4f}"
+          f" | {STREAMS}-stream vs+adb+cas tick {adb['gpu_ms']:.4f} / {adb['wall_ms']:.4f}"
+          f" | deblock 1080p {alone['deblock_1080p']['ms']:.4f} ms, 4K {alone['deblock_4k']['ms']:.4f}"
+          f" | CAS 4K {alone['cas_4k']['ms']:.4f} | K1 C=4 {k1_c4['flagship']['ms']:.4f}"
+          f" | K2 x{STREAMS} C=4 {k2_c4['ms']:.4f}",
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""LiveVisionKit on PyTorch + CUDA for one NVIDIA H100: the flagship
-stabilizer and the FSR scaler (EASU upscale + RCAS sharpen).
+"""LiveVisionKit on PyTorch + CUDA for one NVIDIA H100: the stabilizer
+(homography and mesh modes), the FSR scaler (EASU upscale + RCAS sharpen),
+the deblocker, CAS and colour conversion.
 
 A port of ``livevisionkit_tpu`` (the JAX reference, which stays beside it):
 plain tensor code is PyTorch, and the hot kernels are hand-written CUDA C++
@@ -21,6 +22,8 @@ torch.backends.cudnn.allow_tf32 = False
 __version__ = "0.1.0"
 
 from livevisionkit_tpu_torch.config import (  # noqa: E402
+    CASFilterSettings,
+    DeblockingFilterSettings,
     FeatureDetectorSettings,
     FrameTrackerSettings,
     MotionEstimationSettings,
@@ -32,11 +35,14 @@ from livevisionkit_tpu_torch.config import (  # noqa: E402
 from livevisionkit_tpu_torch.data.frame import Frame  # noqa: E402
 from livevisionkit_tpu_torch.filters.base import (  # noqa: E402
     CompositeFilter,
+    ConversionFilter,
     FrameSpec,
     IdentityFilter,
     VideoFilter,
 )
+from livevisionkit_tpu_torch.filters.deblocking import DeblockingFilter  # noqa: E402
 from livevisionkit_tpu_torch.filters.scaling import ScalingFilter  # noqa: E402
+from livevisionkit_tpu_torch.filters.sharpening import CASFilter  # noqa: E402
 from livevisionkit_tpu_torch.filters.stabilization import (  # noqa: E402
     StabilizationFilter,
     flagship_filter,
@@ -54,8 +60,11 @@ __all__ = [
     "VideoFilter",
     "IdentityFilter",
     "CompositeFilter",
+    "ConversionFilter",
     "StabilizationFilter",
+    "DeblockingFilter",
     "ScalingFilter",
+    "CASFilter",
     "flagship_filter",
     "FeatureDetectorSettings",
     "OpticalFlowSettings",
@@ -63,6 +72,8 @@ __all__ = [
     "FrameTrackerSettings",
     "PathSmootherSettings",
     "StabilizationFilterSettings",
+    "DeblockingFilterSettings",
     "ScalingFilterSettings",
+    "CASFilterSettings",
     "__version__",
 ]

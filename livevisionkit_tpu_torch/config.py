@@ -63,7 +63,7 @@ class MotionEstimationSettings:
 
 @dataclass(frozen=True)
 class MeshMotionSettings:
-    """Local (mesh) motion solve knobs (mesh mode, not yet ported)."""
+    """Local (mesh) motion solve knobs (vision/mesh_motion.py)."""
 
     rigidity_weight: float = 1.0
     temporal_weight: float = 0.5
@@ -138,18 +138,22 @@ class StabilizationFilterSettings:
 
 @dataclass(frozen=True)
 class DeblockingFilterSettings:
-    """Adaptive macroblock deblocking (not yet ported)."""
+    """Adaptive macroblock deblocking (reference DeblockingFilter.hpp;
+    filters/deblocking.py).  `pool_form` is kept so that the settings equal
+    the JAX package's field for field; the port ignores it: it chose
+    between two XLA lowerings of the block mean, and the port has one."""
 
     detection_levels: int = 3
     block_size: int = 16
     filter_size: int = 5
     filter_scaling: int = 4
-    pool_form: str = "auto"  # auto | reshape | reduce_window
+    pool_form: str = "auto"  # auto | reshape | reduce_window (ignored)
 
 
 @dataclass(frozen=True)
 class CASFilterSettings:
-    """Contrast-adaptive sharpening (not yet ported)."""
+    """Contrast-adaptive sharpening (filters/sharpening.py); `sharpness`
+    in [0, 1]."""
 
     sharpness: float = 0.8
 

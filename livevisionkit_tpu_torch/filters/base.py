@@ -12,6 +12,7 @@ valid=False, and temporal state must not be corrupted by invalid frames —
 `where_state` gates it without reading the flag back to the host.
 `CompositeFilter` chains filters; the JAX package's `pool_form` rewrite of
 a mid-chain deblocker is an XLA relayout workaround and is not ported.
+`ConversionFilter` converts the colour format.
 """
 
 from __future__ import annotations
@@ -34,8 +35,14 @@ class FrameSpec:
     width: int
     channels: int = 3
     format: PixelFormat = PixelFormat.RGB
-    # Frames with a separate alpha plane are not supported by the port yet.
+    # Whether frames carry a separate alpha plane (Frame.alpha): stateful
+    # filters need it to shape their state (the stabilizer's delay queue).
     has_alpha: bool = False
+
+    @classmethod
+    def of(cls, frame: Frame) -> "FrameSpec":
+        return cls(height=frame.height, width=frame.width, channels=frame.channels,
+                   format=frame.format, has_alpha=frame.alpha is not None)
 
 
 def where_state(pred: torch.Tensor, new: Any, old: Any) -> Any:
@@ -132,3 +139,30 @@ class CompositeFilter(VideoFilter):
     @property
     def name(self) -> str:
         return "+".join(f.name for f in self.filters)
+
+
+@dataclass(frozen=True)
+class ConversionFilter(VideoFilter):
+    """Colour conversion with optional channel extraction (reference
+    ConversionFilter.hpp:29-33: a conversion code and `output_channels`,
+    cv::cvtColor's dstCn).  `extract_channel` keeps that one plane of the
+    converted frame as a single-channel GRAY stream.  Alpha is left as it
+    is."""
+
+    target: PixelFormat
+    extract_channel: int | None = None
+
+    def step(self, state: Any, frame: Frame, *, drain: bool | torch.Tensor = False) -> tuple[Any, Frame]:
+        out = frame.reformat(self.target)
+        if self.extract_channel is not None:
+            if not 0 <= self.extract_channel < out.channels:
+                raise ValueError(f"extract_channel {self.extract_channel} out of range for "
+                                 f"{out.channels}-channel {self.target}")
+            k = self.extract_channel
+            out = out.replace(pixels=out.pixels[k:k + 1], format=PixelFormat.GRAY)
+        return state, out
+
+    def output_spec(self, spec: FrameSpec) -> FrameSpec:
+        if self.extract_channel is not None:
+            return dataclasses.replace(spec, format=PixelFormat.GRAY, channels=1)
+        return dataclasses.replace(spec, format=self.target, channels=self.target.channels)

@@ -9,7 +9,10 @@ u8 delay queue, pop the delayed one and warp it by the correction.  The
 motion model is the tracker's `motion_resolution`: a 2x2 field (global
 homography) or a mesh, e.g. presets.stabilization_preset(model="field")'s
 16x16; the step is the same for both, and a mesh's correction warps by its
-dense sample map through the same warp kernel.  The
+dense sample map through the same warp kernel.  A frame's alpha plane
+rides the u8 queue beside the colour planes and is warped with them in one
+gather (4 planes through the warp kernel), and `debug` draws the test-mode
+overlays (tracked points, the motion field, the stable region).  The
 step is branch-free on tensor values: every flag is a 0-d bool tensor and
 every gate a `torch.where`, so nothing in it waits for the device.
 """
@@ -32,6 +35,7 @@ from livevisionkit_tpu_torch.data.stream_buffer import StreamBuffer
 from livevisionkit_tpu_torch.filters.base import FrameSpec, VideoFilter, where_state
 from livevisionkit_tpu_torch.models.homography import Homography
 from livevisionkit_tpu_torch.models.warp_field import WarpField
+from livevisionkit_tpu_torch.ops import drawing
 from livevisionkit_tpu_torch.utils.batching import pytree_dataclass
 from livevisionkit_tpu_torch.vision import frame_tracker, path_smoother
 
@@ -50,7 +54,7 @@ def _dequantize_u8(x: torch.Tensor) -> torch.Tensor:
 class StabilizerState:
     tracker: frame_tracker.TrackerState
     smoother: path_smoother.SmootherState
-    frames: StreamBuffer  # delay queue {"pixels", "timestamp", "valid"} (capacity N+1)
+    frames: StreamBuffer  # delay queue {"pixels", "timestamp", "valid"[, "alpha"]} (capacity N+1)
     scene_quality: torch.Tensor  # EMA of tracking stability
     trust: torch.Tensor  # motion trust factor in [0, 1]
     stability: torch.Tensor  # last-frame diagnostics
@@ -62,11 +66,13 @@ class StabilizerState:
 class StabilizationFilter(VideoFilter):
     settings: StabilizationFilterSettings = field(default_factory=StabilizationFilterSettings)
     enabled: bool = True  # bypass path: maintain delay/crop only
+    # Test mode: draw tracked points, the motion field and the stable region
+    # on outputs (StabilizationFilter.cpp:163-188, VSFilter.cpp:368-383).
+    debug: bool = False
 
     def init(self, spec: FrameSpec, device: torch.device | str = "cuda", seed: int = 0) -> StabilizerState:
-        """Initial state on `device`; `seed` seeds the RANSAC generator."""
-        if spec.has_alpha:
-            raise NotImplementedError("alpha planes are not ported yet (ROADMAP slice 5)")
+        """Initial state on `device`; `seed` seeds the RANSAC generator.  The
+        delay queue holds an alpha plane when `spec.has_alpha`."""
         s = self.settings
         if s.queue_dtype not in ("uint8", "float32"):
             raise ValueError(f"unknown queue_dtype {s.queue_dtype!r}")
@@ -76,6 +82,8 @@ class StabilizationFilter(VideoFilter):
             "timestamp": torch.zeros((), dtype=torch.float32, device=device),
             "valid": torch.zeros((), dtype=torch.bool, device=device),
         }
+        if spec.has_alpha:
+            template["alpha"] = torch.zeros((spec.height, spec.width), dtype=qdtype, device=device)
         zero = torch.zeros((), dtype=torch.float32, device=device)
         return StabilizerState(
             tracker=frame_tracker.init(s.tracker, device=device, seed=seed),
@@ -154,30 +162,42 @@ class StabilizationFilter(VideoFilter):
         # Delay queue: the push is advance-gated, so a stall bubble lands in
         # the dead slot and oldest() returns the bubble itself (an invalid
         # output tick) without losing a queued real frame.
+        has_alpha = "alpha" in state.frames.data
+        if has_alpha != (frame.alpha is not None):
+            raise ValueError("frame and state disagree on the alpha plane: init the filter "
+                             "with FrameSpec(has_alpha=...) of the stream's frames")
         u8 = s.queue_dtype == "uint8"
-        payload = _quantize_u8(frame.pixels) if u8 else frame.pixels
-        frames = state.frames.push(
-            {"pixels": payload, "timestamp": frame.timestamp, "valid": frame.valid},
-            advance=advance,
-        )
+        store = _quantize_u8 if u8 else (lambda x: x)
+        payload = {"pixels": store(frame.pixels), "timestamp": frame.timestamp, "valid": frame.valid}
+        if has_alpha:
+            payload["alpha"] = store(frame.alpha)
+        frames = state.frames.push(payload, advance=advance)
         delayed = frames.oldest()
         queue_full = frames.is_full()
 
         warp = correction
         if s.crop_output:
             warp = correction.compose(self._crop_field(warp.field_shape, frame.size, dev))
+        # With the u8 queue the warp takes the raw u8 planes and returns u8
+        # (the reference warps 8-bit frames), dequantized after.  Alpha goes
+        # through the same gather as a last plane; EASU's luma comes from
+        # the colour planes alone (plane 0, or planes 0-2 for RGB/BGR).
+        planes = delayed["pixels"]
+        if has_alpha:
+            planes = torch.cat([planes, delayed["alpha"][None]])
         if self.enabled or s.crop_output:
-            # With the u8 queue the warp takes the raw u8 planes and returns
-            # u8 (the reference warps 8-bit frames), dequantized after.
-            warped = warp.apply(delayed["pixels"], fill=0.0, filter_mode=s.warp_filter, fmt=frame.format)
-        else:
-            warped = delayed["pixels"]
-        out_pixels = _dequantize_u8(warped) if u8 else warped
+            planes = warp.apply(planes, fill=0.0, filter_mode=s.warp_filter, fmt=frame.format)
+        if u8:
+            planes = _dequantize_u8(planes)
+        out_pixels, out_alpha = (planes[:-1], planes[-1]) if has_alpha else (planes, None)
+        if self.debug and self.enabled:
+            out_pixels = self._draw_debug(out_pixels, frame.format, result)
 
         out = Frame(
             pixels=out_pixels,
             timestamp=delayed["timestamp"],
             valid=delayed["valid"] & queue_full & ready,
+            alpha=out_alpha,
             format=frame.format,
         )
         new_state = StabilizerState(
@@ -191,6 +211,19 @@ class StabilizationFilter(VideoFilter):
             correction=correction,
         )
         return new_state, out
+
+    def _draw_debug(self, pixels, fmt, result) -> torch.Tensor:
+        """Test-mode overlays (StabilizationFilter.cpp:163-188): the tracked
+        points as crosses, the frame's motion field, the stable region."""
+        s = self.settings
+        _, h, w = pixels.shape
+        dh, dw = s.tracker.detection_size
+        pts = torch.stack([result.points[:, 0] * ((w - 1) / (dw - 1)),
+                           result.points[:, 1] * ((h - 1) / (dh - 1))], dim=-1)
+        pixels = drawing.draw_crosses(pixels, pts, result.points_valid, drawing.colour("green", fmt))
+        pixels = drawing.draw_motion_field(pixels, result.motion.offsets, drawing.colour("magenta", fmt))
+        m = self.stable_region_margin()
+        return drawing.draw_rect(pixels, (m, m), (1 - m, 1 - m), drawing.colour("yellow", fmt))
 
 
 def flagship_filter(

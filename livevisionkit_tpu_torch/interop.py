@@ -81,17 +81,18 @@ def stabilizer_state_from_numpy(
     )
 
     fq = tree.frames
-    if getattr(fq.data, "alpha", None) is not None:
-        raise NotImplementedError("alpha planes are not ported yet (ROADMAP slice 5)")
     pixels = _t(fq.data.pixels, device)
     if pixels.dtype not in (torch.uint8, torch.float32):
         raise TypeError(f"unexpected delay-queue dtype {pixels.dtype}")
+    data = {
+        "pixels": pixels,
+        "timestamp": _t(fq.data.timestamp, device, torch.float32),
+        "valid": _t(fq.data.valid, device, torch.bool),
+    }
+    if getattr(fq.data, "alpha", None) is not None:  # a queue of frames with alpha
+        data["alpha"] = _t(fq.data.alpha, device, pixels.dtype)
     frames = StreamBuffer(
-        data={
-            "pixels": pixels,
-            "timestamp": _t(fq.data.timestamp, device, torch.float32),
-            "valid": _t(fq.data.valid, device, torch.bool),
-        },
+        data=data,
         start=_t(fq.start, device, torch.int64),
         count=_t(fq.count, device, torch.int64),
         capacity=int(fq.capacity),
@@ -114,7 +115,8 @@ def composite_state_from_numpy(
     """The port's CompositeFilter state equal to a JAX chain's, given as
     numpy leaves, for the port's `filters` (a CompositeFilter's `.filters`):
     a stabilizer stage goes through `stabilizer_state_from_numpy` (its
-    RANSAC generator seeded with `seed`), a stateless stage maps () to ()."""
+    RANSAC generator seeded with `seed`), a stateless stage (a deblocker,
+    CAS, a scaler, a conversion) maps () to ()."""
     if len(tree) != len(filters):
         raise ValueError(f"{len(tree)} stage states for {len(filters)} filters")
     states = []

@@ -1,7 +1,8 @@
 """Resize, pyramid and gradient ops on (..., H, W) tensors (counterpart of
 livevisionkit_tpu/ops/resample.py; the stabilizer's path needs `resize` with
 antialias and the pyrDown pyramid, mesh mode the corner-aligned resize of
-its warp fields).
+its warp fields, the deblocker block means, a median and integer
+upsamples).
 
 Reference parity: the detection-resolution downscale (FrameTracker.cpp:117),
 cv::buildOpticalFlowPyramid's pyrDown (5-tap binomial blur + 2x
@@ -131,3 +132,45 @@ def resize_corner_aligned(img: torch.Tensor, size: tuple[int, int]) -> torch.Ten
     x = img.reshape((1, -1, in_h, in_w))
     out = F.interpolate(x, size=(out_h, out_w), mode="bilinear", align_corners=True)
     return out.reshape(lead + (out_h, out_w))
+
+
+def upsample_nearest_int(img: torch.Tensor, factor: int) -> torch.Tensor:
+    """Replicate each pixel of trailing (H, W) into a factor x factor block."""
+    *lead, h, w = img.shape
+    x = img[..., :, None, :, None].expand(*lead, h, factor, w, factor)
+    return x.reshape(*lead, h * factor, w * factor)
+
+
+def upsample_linear_int(img: torch.Tensor, factor: tuple[int, int]) -> torch.Tensor:
+    """Integer-factor bilinear upsample of trailing (H, W), half-pixel
+    centres and edge clamping: `jax.image.resize(..., "linear",
+    antialias=False)`, which `F.interpolate(align_corners=False)` computes.
+    (The JAX package's polyphase slices are a TPU lowering, not ported.)"""
+    fy, fx = factor
+    h, w = img.shape[-2], img.shape[-1]
+    lead = img.shape[:-2]
+    x = img.reshape((1, -1, h, w))
+    out = F.interpolate(x, size=(h * fy, w * fx), mode="bilinear", align_corners=False)
+    return out.reshape(lead + (h * fy, w * fx))
+
+
+def median_blur(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    """ksize x ksize median filter of trailing (H, W) (cv::medianBlur),
+    reflect-101 padded: the exact median of the ksize^2 shifted views, so
+    it equals the JAX package's selection network bit for bit.  (That
+    network exists because XLA sorts serially on a TPU; not ported.)"""
+    r = ksize // 2
+    h, w = img.shape[-2], img.shape[-1]
+    lead = img.shape[:-2]
+    x = F.pad(img.reshape((1, -1, h, w)), (r, r, r, r), mode="reflect")
+    x = x.reshape(lead + x.shape[-2:])
+    patches = torch.stack([x[..., dy:dy + h, dx:dx + w]
+                           for dy in range(ksize) for dx in range(ksize)])
+    return torch.median(patches, dim=0).values
+
+
+def avg_pool(img: torch.Tensor, block: int) -> torch.Tensor:
+    """Non-overlapping block mean over trailing (H, W); H, W must divide."""
+    *lead, h, w = img.shape
+    x = img.reshape(*lead, h // block, block, w // block, block)
+    return x.mean(dim=(-3, -1))

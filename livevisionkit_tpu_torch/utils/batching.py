@@ -3,7 +3,9 @@
 * `pytree_dataclass` registers a state or frame dataclass as a pytree, so
   vmap maps over its tensors.  Fields that are not tensors (a RANSAC
   generator, a buffer's capacity, a pixel format) are named `static`: they
-  ride in the tree's structure, shared by every stream, never batched.
+  ride in the tree's structure, shared by every stream, never batched.  An
+  optional field that holds None (a frame without an alpha plane) rides
+  there too: torch's pytree takes None for a leaf, which vmap cannot map.
 * `stream_first` is what a custom op's vmap rule does to each operand
   before it hands the batch to a kernel (ops/remap.py,
   vision/optical_flow.py): stream axis first, an unbatched operand
@@ -23,17 +25,24 @@ import torch.utils._pytree as pytree
 
 def pytree_dataclass(static: tuple[str, ...] = ()):
     """Class decorator: register a dataclass as a pytree whose children are
-    its fields but `static`, which go into the tree's structure."""
+    its fields but `static` and those that hold None, which go into the
+    tree's structure."""
 
     def register(cls):
         names = tuple(f.name for f in dataclasses.fields(cls))
         children = tuple(n for n in names if n not in static)
 
         def flatten(obj):
-            return [getattr(obj, n) for n in children], tuple(getattr(obj, n) for n in static)
+            values = [getattr(obj, n) for n in children]
+            absent = tuple(n for n, v in zip(children, values) if v is None)
+            return ([v for v in values if v is not None],
+                    (tuple(getattr(obj, n) for n in static), absent))
 
         def unflatten(values, context):
-            return cls(**dict(zip(children, values)), **dict(zip(static, context)))
+            statics, absent = context
+            present = [n for n in children if n not in absent]
+            return cls(**dict(zip(present, values)), **dict.fromkeys(absent),
+                       **dict(zip(static, statics)))
 
         pytree.register_pytree_node(cls, flatten, unflatten)
         return cls

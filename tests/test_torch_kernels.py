@@ -239,8 +239,9 @@ def _affine_map(size, out_size, scale, angle):
 
 
 # Channel counts and luma rules of the EASU warp: GRAY (one plane), YUV
-# (luma = plane 0, with and without a 4th plane) and RGB (luma from three).
-WARP_FORMATS = [(1, "GRAY"), (3, "YUV"), (3, "RGB"), (4, "YUV")]
+# (luma = plane 0, with and without a 4th plane) and RGB (luma from three,
+# with and without a 4th): colour + alpha is the stabilizer's 4-plane warp.
+WARP_FORMATS = [(1, "GRAY"), (3, "YUV"), (3, "RGB"), (4, "YUV"), (4, "RGB")]
 # Maps over a 117 x 203 or 117 x 204 source onto a 101 x 187 output (no
 # multiple of the 32 x 8 block): a stabilization warp whose blocks stage
 # their source box in shared memory, and a 0.5x zoom-out and a 30-degree
@@ -286,6 +287,51 @@ def test_warp_kernel_tile_paths(cuda, width, dtype, nc_fmt, kind):
         assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
     else:
         assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["YUV", "RGB"])
+@pytest.mark.parametrize("mode", ["easu", "bilinear"])
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_warp_kernel_colour_plus_alpha(cuda, dtype, mode, fmt):
+    """The stabilizer's colour + alpha gather at C = 4: K1 within its bounds
+    of the plain version (f32 atol 1e-4; u8 at most 1 LSB on at most 0.1%
+    of pixels); its colour planes within 1e-6 (f32) or 1 LSB on 0.1% (u8)
+    of the 3-plane launch, since EASU's luma comes from the colour planes,
+    never from alpha; and K2 over 8 streams bit-equal to 8 solo launches."""
+    pf = getattr(PixelFormat, fmt)
+    img = torch.cat([_image(cuda), _image(cuda)[1:2].flip(-1)]).contiguous()
+    if dtype == "uint8":
+        img = torch.clamp(img * 255.0 + 0.5, 0, 255).to(torch.uint8)
+    smap = _similarity(1.03, 0.03, 3.2, -2.7, cuda).sample_map(img.shape[-2:]).contiguous()
+    kw = dict(fill=0.0, filter_mode=mode, fmt=pf)
+    got = warp_kernel.warp(img, smap, **kw)
+    want = remap_ops.remap_plain(img, smap, **kw)
+    colour = warp_kernel.warp(img[:3].contiguous(), smap, **kw)
+    imgs = torch.stack([torch.roll(img, 7 * s, dims=-1) for s in range(8)]).contiguous()
+    maps = _stream_maps(cuda, img.shape[-2:]).repeat(3, 1, 1, 1)[:8].contiguous()
+    batched = warp_kernel.warp_batched(imgs, maps, **kw)
+    solo = torch.stack([warp_kernel.warp(imgs[s], maps[s], **kw) for s in range(8)])
+    torch.cuda.synchronize()
+    assert torch.equal(batched, solo)
+    for a, b in ((got, want), (got[:3], colour)):
+        if dtype == "uint8":
+            d = (a.int() - b.int()).abs()
+            assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+        else:
+            assert float((a - b).abs().max()) <= (1e-4 if b is want else 1e-6)
+
+
+@pytest.mark.cuda
+def test_warp_kernel_rejects_five_planes(cuda):
+    """Four planes (colour + alpha) is the warp kernel's limit: K1 and K2
+    raise on five instead of taking the plain version."""
+    img = torch.cat([_image(cuda), _image(cuda)[:2]]).contiguous()
+    smap = _similarity(1.0, 0.0, 0.0, 0.0, cuda).sample_map(img.shape[-2:]).contiguous()
+    with pytest.raises(ValueError, match="channels"):
+        warp_kernel.warp(img, smap)
+    with pytest.raises(ValueError, match="channels"):
+        warp_kernel.warp_batched(img[None], smap[None])
 
 
 @pytest.mark.cuda

@@ -6,7 +6,8 @@
 * `MultiStreamFilter.step` against ``jax.jit(jax.vmap(step))`` on a tiny
   filter over 3 streams, with a stall tick and drain bubbles, and a batched
   JAX state carried into the port; the same over the stabilizer ->
-  `ScalingFilter` chain and over the stabilizer in mesh mode.
+  `ScalingFilter` chain, over the stabilizer -> deblocker -> CAS chain
+  and over the stabilizer in mesh mode.
 * The batched EASU scale and RCAS (the vmap rules of ``lvk::easu_scale``
   and ``lvk::rcas``) entered once a tick, and an op with no batching rule
   raising.
@@ -322,14 +323,18 @@ def test_batched_state_carried_from_jax(runs):
 OUT = (128, 192)  # the chain's 2x scaler output
 
 
-def _lockstep(fj, ft, n=N, seed=4):
+def _lockstep(fj, ft, n=N, seed=4, flat=False, tap=False):
     """`n` live ticks of S fresh shaky clips through jax.jit(jax.vmap(step))
     and the port's MultiStreamFilter; per tick the poses and both packages'
-    (valid, pixels, stabilizer correction) per stream."""
+    (valid, pixels, stabilizer correction and, with `tap`, the second
+    stage's state) per stream.  `flat` puts a flat patch in each texture's
+    view."""
     rng = np.random.default_rng(seed)
     poses, clips = [], []
     for _ in range(S):
-        base = fixtures.make_texture(240, 240, rng)
+        base = np.array(fixtures.make_texture(240, 240, rng))
+        if flat:
+            base[80:130, 90:150] = 0.6
         ps, _ = fixtures.shaky_path(n, rng, margin=60.0)
         poses.append(ps)
         clips.append([_yuv(fixtures.render_frame(base, p, SIZE)) for p in ps])
@@ -346,9 +351,11 @@ def _lockstep(fj, ft, n=N, seed=4):
                                    valid=jnp.asarray(valid), format=YUV_J))
         st, ot = multi.step(st, _port_frame(px, ts, valid))
         jout.append(dict(valid=np.asarray(oj.valid), px=np.asarray(oj.pixels),
-                         corr=np.asarray(sj[0].correction.offsets)))
+                         corr=np.asarray(sj[0].correction.offsets),
+                         second=np.asarray(sj[1]) if tap else None))
         tout.append(dict(valid=ot.valid.numpy(), px=ot.pixels.numpy(),
-                         corr=st[0].correction.offsets.numpy()))
+                         corr=st[0].correction.offsets.numpy(),
+                         second=st[1].numpy() if tap else None))
     return dict(poses=poses, jax=jout, torch=tout)
 
 
@@ -377,6 +384,40 @@ def test_batched_chain_matches_jax(chain_runs):
             d = np.abs(ot["px"][s] - oj["px"][s])
             assert d.max() <= 4.0 / 255.0 and d.mean() <= 1e-4, (d.max(), d.mean())
     assert sum(o["valid"].sum() for o in chain_runs["torch"]) == S * (N - PREDICTIVE)
+
+
+@pytest.fixture(scope="module")
+def adb_cas_runs():
+    """The JAX package's `vs + adb + cas` (the stabilizer, a tap of the
+    deblocker's input, the deblocker, CAS; tests/test_torch_enhancement.py),
+    batched, in both packages, over clips with flat patches."""
+    import test_torch_enhancement as enh
+
+    return _lockstep(lj.CompositeFilter(enh.chain_stages(lj, jcfg, _settings(jcfg))),
+                     lt.CompositeFilter(enh.chain_stages(lt, tcfg, _settings(tcfg))), seed=6, flat=True,
+                     tap=True)
+
+
+def test_batched_adb_cas_chain_matches_jax(adb_cas_runs):
+    """MultiStreamFilter over vs + adb + cas against jax.jit(jax.vmap(step)),
+    S = 3: per stream and tick equal valid flags, corrections within 2e-3,
+    and valid frames within the bounds of tests/test_torch_enhancement.py's
+    `chain_compare` (max 4/255, held on at least 60% of the pixels; mean
+    1e-4); the deblocker smooths some
+    blocks."""
+    import test_torch_enhancement as enh
+
+    smoothed = held = total = 0
+    for oj, ot in zip(adb_cas_runs["jax"], adb_cas_runs["torch"]):
+        assert (ot["valid"] == oj["valid"]).all()
+        assert ot["px"].shape == oj["px"].shape == (S, 3, *SIZE)
+        assert np.abs(ot["corr"] - oj["corr"]).max() <= 2e-3
+        for s in np.flatnonzero(oj["valid"]):
+            _, n_held, n, mj = enh.chain_compare(ot["px"][s], oj["px"][s], ot["second"][s], oj["second"][s])
+            held, total = held + n_held, total + n
+            smoothed += int((mj * 255.0 < enh.LEVELS).sum())
+    assert smoothed > 0 and held >= 0.6 * total
+    assert sum(o["valid"].sum() for o in adb_cas_runs["torch"]) == S * (N - PREDICTIVE)
 
 
 MESH = (5, 7)
