@@ -27,6 +27,16 @@ solo and over 8 streams) against its plain version; the 4K full chain
 CAS at 4K alone, each against the same op on a CPU copy; the 8-stream
 `vs + adb + cas` tick at 1080p; and the stabilizer's debug overlays on
 frames with alpha, solo beside the plain filter and over 8 streams.
+Then the runtime slice at 1080p, fed from in-memory readers (the script
+needs no OpenCV): the `lvk-torch` chain `-f lc.profile=... -f
+vs.crop_out=1 -f adb` (built by the CLI's own filter registry) through
+`runtime/stream.stream`, with synchronizing calls made errors around the
+run, then with per-filter profiling, the frame-time HUD and a
+`DeviceTrace`; `LensCorrectionFilter` alone in EASU and bilinear mode (K1
+on its undistort map against plain, at three and four planes, beside
+F.grid_sample); `process_clip` bit-equal to the frame loop; the ingest
+codecs against the CPU codecs and the native host library; a snapshot
+resumed bit-equal; and a chessboard calibration of a known camera.
 Each drive checks that its step went through its kernels once per frame
 (or tick) and that the outputs are right.  It also times the scaler alone
 at 1080p -> 4K.  Every failure raises.  The last line is a JSON object
@@ -36,7 +46,7 @@ launches over every path, error and times, with its bound (the larger of
 its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, the H100
 SXM's published peaks, counted from this run's shapes and maps) and the
 time of one PyTorch call computing the same function where there is one
-(none computes EASU, LK or RCAS).  Kernel times are taken behind a device
+(F.grid_sample for the bilinear warp; none computes EASU, LK or RCAS).  Kernel times are taken behind a device
 spin, so the host's enqueue gap is not in them; the text lines give each
 also without the spin, as timed before.  With no CUDA device it exits
 non-zero and prints no result.  `--profile DIR` also writes
@@ -1108,18 +1118,9 @@ def run_stream_multi(dev, clips) -> dict:
     1080p frames (DRIVER_FRAMES each, from the clips) through the flagship
     filter on the card; every frame comes out, in order, with no stall."""
     import livevisionkit_tpu_torch as lvk
-    from livevisionkit_tpu_torch.ops import color
     from livevisionkit_tpu_torch.runtime.multistream import stream_multi
 
-    yuv, bgr = lvk.PixelFormat.YUV, lvk.PixelFormat.BGR
-    readers = []
-    for s in range(STREAMS):
-        frames = []
-        for t in range(DRIVER_FRAMES):
-            x = color.convert(clips[s, t].to(torch.float32) * (1.0 / 255.0), yuv, bgr)
-            u8 = torch.clamp(x * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8).permute(1, 2, 0)
-            frames.append((u8.contiguous().cpu().numpy(), t / 30.0))
-        readers.append(frames)
+    readers = [_bgr_reader_frames(clips[s, :DRIVER_FRAMES]) for s in range(STREAMS)]
     got = [[] for _ in range(STREAMS)]
     bad = []
 
@@ -1668,6 +1669,570 @@ def run_debug(dev, rng, clips) -> dict:
             "wall_ms": wall_ms, "tick_gpu_ms": tick_gpu_ms, "tick_wall_ms": tick_wall_ms}
 
 
+# ---------------------------------------------------------------------------
+# The runtime slice: the `lvk-torch` chain through `stream()`, its profile,
+# HUD and trace, lens correction alone, `process_clip`, ingest, snapshots
+# and calibration, all at 1080p.  The script needs no OpenCV, so the
+# drives read in-memory lists of host u8 BGR frames.
+# ---------------------------------------------------------------------------
+
+LVK_SPECS = ("lc.profile=camera", "vs.crop_out=1", "adb")  # the CLI's -f specs
+HUD_FRAMES = 20  # frames of the HUD run (10 outputs after the delay)
+TRACE_FRAMES = 10  # frames of the DeviceTrace run
+LC_STEPS = 20  # lens-correction steps per mode and plane count
+# The lc profile and the calibration phase's camera: 1080p, barrel k1.
+CAMERA = {"fx": 1450.0, "fy": 1430.0, "cx": 967.0, "cy": 533.0, "k1": -0.2}
+BOARD = (9, 6)  # inner corners of the calibration chessboard
+BOARD_VIEWS = 12
+# One 8-bit level of chroma through YUV -> BGR, whose largest chroma gain is
+# 2.03 (U into B): the clip's chroma is 0.5 only up to the rounding of its
+# u8 BGR frames and of the stabilizer's u8 delay queue (0.5 is stored as
+# 128 / 255), and filtering plane by plane puts a pixel's luma beside its
+# neighbours' chroma, so BGR leaves [0, 1] by a fraction of that.
+RANGE_EPS = 2.04 / 255.0
+
+
+def _bgr_reader_frames(clip: torch.Tensor) -> list:
+    """A (T, 3, H, W) u8 YUV clip on the card as host (u8 HWC BGR,
+    timestamp) pairs: the in-memory reader of `stream()`."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.ops import color
+
+    frames = []
+    for t in range(clip.shape[0]):
+        x = color.convert(clip[t].to(torch.float32) * (1.0 / 255.0), lvk.PixelFormat.YUV,
+                          lvk.PixelFormat.BGR)
+        u8 = torch.clamp(x * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8).permute(1, 2, 0)
+        frames.append((u8.contiguous().cpu().numpy(), t / 30.0))
+    return frames
+
+
+def _lvk_chain(tmp: str):
+    """The chain `lvk-torch -f lc.profile=camera -f vs.crop_out=1 -f adb`,
+    built by the CLI's own spec parser and filter registry: lens correction
+    from CAMERA (written to `tmp/camera`: the spec grammar splits options
+    on '.', so the profile is named relative to `tmp`), the flagship
+    stabilizer cropped to its stable region, and the deblocker."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.runtime import cli
+
+    with open(os.path.join(tmp, "camera"), "w") as fh:
+        json.dump(lvk.CameraParameters(**CAMERA).to_dict(), fh)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        filters = tuple(cli._build_filter(*cli._parse_filter_spec(s)) for s in LVK_SPECS)
+    finally:
+        os.chdir(cwd)
+    return lvk.CompositeFilter(filters=filters)
+
+
+def _timestamps(n: int) -> list[float]:
+    """The driver's timestamps of frames 0..n-1 (float32 seconds)."""
+    return [float(np.float32(t / 30.0)) for t in range(n)]
+
+
+def run_lvk_stream(dev, frames, tmp) -> dict:
+    """The `lvk-torch` chain (lc + vs + adb) through `stream()` over 60
+    in-memory 1080p BGR frames, with synchronizing calls made errors around
+    the whole run (the drain's event waits are the only waits): frames in
+    == 60, out == 60 - delay, output timestamps those of frames 0..59-delay,
+    outputs finite and in [0, 1] within RANGE_EPS, two K1 launches (lc and
+    vs) and one K3 a frame.  A short run first fills the per-shape caches."""
+    from livevisionkit_tpu_torch.runtime.stream import stream
+
+    filt = _lvk_chain(tmp)
+    n, delay = len(frames), filt.delay
+    stream(filt, iter(frames[:delay + 2]), device=dev)
+    torch.cuda.synchronize()
+    got = []
+
+    def on_output(px, ts):  # the writer thread: the checks a real encoder's place takes
+        got.append((ts, px.shape, float(px.min()), float(px.max())))
+
+    _reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        stats = stream(filt, iter(frames), on_output=on_output, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    assert stats.frames_in == n, f"lvk stream: frames in {stats.frames_in}, want {n}"
+    assert stats.frames_out == n - delay == len(got), (
+        f"lvk stream: frames out {stats.frames_out} ({len(got)} written), want {n - delay}")
+    assert [g[0] for g in got] == _timestamps(n - delay), f"lvk stream: timestamps {[g[0] for g in got]}"
+    bad = [t for t, (_, shape, lo, hi) in enumerate(got)
+           if shape != (3, H, W) or not (-RANGE_EPS <= lo and hi <= 1.0 + RANGE_EPS)]
+    assert not bad, f"lvk stream: outputs {bad} not finite (3, {H}, {W}) in [0, 1] +- {RANGE_EPS}"
+    want = _want(warp=2 * n, lk_track=n)
+    assert launches == want, f"lvk stream: launches {launches}, want {want}"
+    ft, q = stats.frame_time, stats.latency_quantiles()
+    fps = stats.frames_out / wall
+    print(f"lvk stream ({' '.join('-f ' + s for s in LVK_SPECS)}): {n} 1080p BGR frames in, "
+          f"{stats.frames_out} out (delay {delay}), timestamps in order, outputs in "
+          f"[{min(g[2] for g in got):.5f}, {max(g[3] for g in got):.5f}], no sync "
+          f"in the run; launches {launches}; {fps:.2f} frames/s over the run ({wall:.3f} s), "
+          f"{stats.fps:.2f} by the frame stopwatch; frame time {ft.average_ms():.4f} ms +- "
+          f"{ft.deviation_ms():.4f} ms; latency p50 {q['p50_ms']:.4f} / p95 {q['p95_ms']:.4f} / "
+          f"p99 {q['p99_ms']:.4f} ms", flush=True)
+    return {"launches": launches, "fps": fps, "fps_stopwatch": stats.fps,
+            "frame_ms": ft.average_ms(), "frame_dev_ms": ft.deviation_ms(), **q}
+
+
+def _hud_stamped(px: np.ndarray) -> bool:
+    """Does the (3, H, W) output carry the frame-time HUD's glyphs (at least
+    20 pixels of its green or red) at its origin?"""
+    from livevisionkit_tpu_torch.runtime.hud import GREEN, RED
+
+    region = px[:, 6:21, 6:200]
+    return any(int((region == np.asarray(c, np.float32).reshape(3, 1, 1)).all(0).sum()) >= 20
+               for c in (GREEN, RED))
+
+
+def run_lvk_profile(dev, frames, tmp) -> dict:
+    """The same chain with profile_filters=True (each filter stepped alone
+    and waited for): per-filter ms under the JAX driver's "i:name" keys;
+    then HUD_FRAMES frames with the 6 ms HUD, stamped on every output."""
+    from livevisionkit_tpu_torch.runtime.stream import stream
+
+    filt = _lvk_chain(tmp)
+    stats = stream(filt, iter(frames), device=dev, profile_filters=True)
+    keys = ["0:LensCorrectionFilter", "1:StabilizationFilter", "2:DeblockingFilter"]
+    assert list(stats.filter_times) == keys, f"profile keys {list(stats.filter_times)}"
+    times = {k: (w.average_ms(), w.deviation_ms(), w.count) for k, w in stats.filter_times.items()}
+    assert all(c == len(frames) for _, _, c in times.values()), f"profile counts {times}"
+    print("lvk stream --profile-filters: " + "; ".join(
+        f"{k} {a:.4f} ms +- {d:.4f} (n={c})" for k, (a, d, c) in times.items()) +
+        f"; frame time {stats.frame_time.average_ms():.4f} ms", flush=True)
+
+    stamped = []
+    hud = stream(filt, iter(frames[:HUD_FRAMES]), on_output=lambda px, ts: stamped.append(_hud_stamped(px)),
+                 hud_budget_ms=6.0, device=dev)
+    assert hud.frames_out == HUD_FRAMES - filt.delay == len(stamped), f"HUD run: {hud.frames_out} out"
+    assert all(stamped), f"HUD missing on outputs {[t for t, s in enumerate(stamped) if not s]}"
+    print(f"lvk stream --hud 6.0: {len(stamped)} outputs, the HUD on every one", flush=True)
+    return {"filter_ms": {k: a for k, (a, _, _) in times.items()}}
+
+
+def run_lvk_trace(dev, frames, tmp) -> dict:
+    """TRACE_FRAMES frames of the chain inside `DeviceTrace`: the Chrome
+    trace holds every frame span, the runtime's upload / step / download
+    spans and the card's kernels."""
+    from livevisionkit_tpu_torch.runtime.stream import stream
+    from livevisionkit_tpu_torch.utils.profiling import DeviceTrace
+
+    filt = _lvk_chain(tmp)
+    with DeviceTrace(os.path.join(tmp, "trace"), device=dev) as tr:
+        stream(filt, iter(frames[:TRACE_FRAMES]), device=dev)
+    with open(tr.path) as fh:
+        events = json.load(fh)["traceEvents"]
+    size_mb = os.path.getsize(tr.path) / 2**20
+    os.remove(tr.path)
+    names = {e.get("name") for e in events}
+    want = {f"frame#{t}" for t in range(TRACE_FRAMES)} | {"upload", "step", "download"}
+    assert want <= names, f"trace lacks {sorted(want - names)}"
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    assert kernels > 0, "trace holds no device kernel"
+    print(f"DeviceTrace: {TRACE_FRAMES} frames, {len(events)} events ({size_mb:.1f} MiB), "
+          f"{kernels} kernels, every frame#t and upload/step/download span present", flush=True)
+    return {"kernels": kernels}
+
+
+def _bilinear_ops(n_out: int, nc: int) -> int:
+    """f32 operations of n_out bilinear outputs of nc channels in the plain
+    version (ops/remap.bilinear_sample): per output two floors, two
+    fractions, four clamped indices (8) and the inside test with its
+    selects (5), and per channel three lerps of 3 operations each."""
+    return n_out * (2 + 2 + 8 + 5 + 9 * nc)
+
+
+def check_lens_correction(dev, clip) -> dict:
+    """`LensCorrectionFilter` alone at 1080p, on the undistort map of CAMERA
+    (a 33x33 field, alpha 0: cropped to the valid region), in EASU and in
+    bilinear mode: K1 on its dense map against the plain version at C = 3
+    and C = 4 (colour + alpha), f32 within 1e-4 and u8 within 1 LSB on at
+    most 1e-3 of pixels (check_warp's bounds), and its time beside plain,
+    the bound and, for bilinear, F.grid_sample on the same map; then
+    LC_STEPS steps of the filter on f32 YUV frames with and without alpha,
+    with synchronizing calls made errors, one K1 launch a step."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.ops import remap as remap_ops
+    from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
+
+    fmt = lvk.PixelFormat.YUV
+    stamps = torch.arange(LC_STEPS, dtype=torch.float32, device=dev) / 30.0
+    live = torch.ones((), dtype=torch.bool, device=dev)
+    pix = [clip[t].to(torch.float32) * (1.0 / 255.0) for t in range(LC_STEPS)]
+    plain_frames = [lvk.Frame(pixels=p, timestamp=stamps[t], valid=live, format=fmt)
+                    for t, p in enumerate(pix)]
+    alpha_frames = [f.replace(alpha=f.pixels[0].flip(1).contiguous()) for f in plain_frames]
+    img_f = pix[0]
+    img_c4 = torch.cat([img_f, alpha_frames[0].alpha[None]]).contiguous()
+    report = {}
+    for mode in ("easu", "bilinear"):
+        filt = lvk.LensCorrectionFilter(parameters=lvk.CameraParameters(**CAMERA), warp_filter=mode)
+        field = filt.init(lvk.FrameSpec(H, W, 3, fmt), device=dev)
+        smap = field.sample_map((H, W)).contiguous()
+        errs = {}
+        for name, img in (("f32", img_f), ("f32 C=4", img_c4)):
+            d = (warp_kernel.warp(img, smap, fill=0.0, filter_mode=mode)
+                 - remap_ops.remap_plain(img, smap, fill=0.0, filter_mode=mode)).abs()
+            errs[name] = float(d.max())
+            assert errs[name] <= 1e-4, f"lc {mode} {name}: K1 differs from plain by {errs[name]}"
+        for name, img in (("u8", img_f), ("u8 C=4", img_c4)):
+            u8 = torch.clamp(img * 255.0 + 0.5, 0, 255).to(torch.uint8)
+            errs[name] = _u8_diff(warp_kernel.warp(u8, smap, fill=0.0, filter_mode=mode),
+                                  remap_ops.remap_plain(u8, smap, fill=0.0, filter_mode=mode))
+            assert errs[name][0] <= 1 and errs[name][1] <= 1e-3, f"lc {mode} {name}: {errs[name]}"
+        ms = _median_ms(lambda: warp_kernel.warp(img_f, smap, fill=0.0, filter_mode=mode))
+        ms_c4 = _median_ms(lambda: warp_kernel.warp(img_c4, smap, fill=0.0, filter_mode=mode))
+        plain_ms = _median_ms(lambda: remap_ops.remap_plain(img_f, smap, fill=0.0, filter_mode=mode))
+        inside = (smap[0] >= 0) & (smap[0] <= H - 1) & (smap[1] >= 0) & (smap[1] <= W - 1)
+        n_bytes = img_f.numel() * 4 * 2 + smap.numel() * 4
+        if mode == "easu":
+            n_easu, n_src = _easu_work(smap, H, W)
+            bound, side = _bound(n_bytes, _easu_ops(n_easu, n_src, 3))
+        else:
+            bound, side = _bound(n_bytes, _bilinear_ops(int(inside.sum()), 3))
+        rep = {"max_abs_err": errs["f32"], "ms": ms, "ms_c4": ms_c4, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": side, "library_ms": None, "errs": errs}
+        if mode == "bilinear":
+            # grid_sample clamps where the kernel fills: compared inside the frame.
+            grid = torch.stack([smap[1] * (2.0 / (W - 1)) - 1.0, smap[0] * (2.0 / (H - 1)) - 1.0],
+                               dim=-1)[None].contiguous()
+            gs = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+                img_f[None], grid, mode="bilinear", padding_mode="border", align_corners=True)
+            rep["library_err"] = float(((gs()[0] - remap_ops.remap_plain(
+                img_f, smap, fill=0.0, filter_mode="bilinear")).abs() * inside).max())
+            rep["library_ms"] = _median_ms(gs)
+        launches = {}
+        for name, frames in (("C=3", plain_frames), ("C=4", alpha_frames)):
+            spec = lvk.FrameSpec.of(frames[0])
+            state = filt.init(spec, device=dev)
+            filt.step(state, frames[0])
+            outs = []
+            _reset_launches()
+            _, gpu_ms, wall_ms = _drive(filt, state, frames, lambda t, st, out: outs.append(out))
+            launches[name] = _launches()
+            assert launches[name] == _want(warp=LC_STEPS), f"lc {mode} {name}: {launches[name]}"
+            assert all(o.pixels.shape == (3, H, W) and (o.alpha is not None) == (name == "C=4")
+                       for o in outs)
+            rep[f"step_{name}"] = (gpu_ms, wall_ms)
+        rep["launches"] = {k: sum(v[k] for v in launches.values()) for k in launches["C=3"]}
+        lib = (f", F.grid_sample {rep['library_ms']:.4f} ms (max |grid_sample - plain| inside "
+               f"{rep['library_err']:.3e})") if mode == "bilinear" else ""
+        print(f"lc {mode} on the undistort map: K1 f32 max|err| {errs['f32']:.3e} (C=4 "
+              f"{errs['f32 C=4']:.3e}); u8 max {errs['u8'][0]} LSB on {errs['u8'][1]:.2e} of pixels "
+              f"(C=4 {errs['u8 C=4'][0]} on {errs['u8 C=4'][1]:.2e}); kernel f32 3x{H}x{W} {ms:.4f} "
+              f"ms, 4 planes {ms_c4:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({side})"
+              f"{lib}; the filter's step {rep['step_C=3'][0]:.4f} / {rep['step_C=3'][1]:.4f} ms, "
+              f"with alpha {rep['step_C=4'][0]:.4f} / {rep['step_C=4'][1]:.4f} ms (device / host), "
+              f"one K1 a step", flush=True)
+        report[mode] = rep
+    return report
+
+
+def run_process_clip(dev, clip) -> dict:
+    """`process_clip` of the flagship filter over the 60-frame YUV clip held
+    on the card (as f32 planes), with synchronizing calls made errors: one K1 and one
+    K3 a frame, and every output bit-equal to stepping the same filter frame
+    by frame from the same seed."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.runtime.offline import process_clip
+
+    filt, fmt = lvk.flagship_filter(), lvk.PixelFormat.YUV
+    n = clip.shape[0]
+    pixels = clip.to(torch.float32) / 255.0  # (60, 3, 1080, 1920) f32, 1.5 GB
+    torch.cuda.synchronize()
+    _reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        start.record()
+        _, out = process_clip(filt, pixels, fmt, device=dev)
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    gpu_ms = start.elapsed_time(end) / n
+    launches = _launches()
+    assert launches == _want(warp=n, lk_track=n), f"process_clip: launches {launches}"
+    stamps = torch.arange(n, dtype=torch.float32, device=dev) / 30.0
+    live = torch.ones((), dtype=torch.bool, device=dev)
+    state = filt.init(lvk.FrameSpec(H, W, 3, fmt), device=dev, seed=0)
+    bad = []
+    for t in range(n):
+        state, ref = filt.step(state, lvk.Frame(pixels=pixels[t], timestamp=stamps[t], valid=live,
+                                                format=fmt))
+        if not (torch.equal(out.pixels[t], ref.pixels) and torch.equal(out.valid[t], ref.valid)
+                and torch.equal(out.timestamp[t], ref.timestamp)):
+            bad.append(t)
+    assert not bad, f"process_clip differs from the frame loop at frames {bad}"
+    valid = out.valid.tolist()
+    assert valid == [t >= filt.delay for t in range(n)], f"process_clip: valid {valid}"
+    print(f"process_clip: {n} 1080p frames of the flagship filter, bit-equal to the frame loop, "
+          f"launches {launches}; {gpu_ms:.4f} ms/frame device, {wall_ms:.4f} ms/frame host",
+          flush=True)
+    return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms}
+
+
+def check_ingest(dev, rng) -> dict:
+    """The OBS codecs at 1080p on the card against the same codec on the
+    CPU (plain host tensors): uploads of I420, NV12, YUY2, UYVY and BGRA
+    within 1 LSB (luma exactly y / 255), and their downloads within 1 LSB;
+    the native host library builds and loads, and its YUY2 / UYVY unpack equals
+    the numpy slices."""
+    from livevisionkit_tpu_torch.runtime import ingest, native_host
+
+    assert native_host.get_lib() is not None, "native host library did not build or load"
+    hh, hw = H // 2, W // 2
+    y = rng.integers(0, 256, size=(H, W), dtype=np.uint8)
+    gy, gx = np.mgrid[0:H, 0:hw]
+    u422 = (128 + 60 * np.sin(gx / 23.0) + rng.integers(-6, 7, size=(H, hw))).clip(0, 255).astype(np.uint8)
+    v422 = (128 + 60 * np.cos(gy / 17.0) + rng.integers(-6, 7, size=(H, hw))).clip(0, 255).astype(np.uint8)
+    u, v = u422[0::2], v422[0::2]
+    yuy2 = np.empty((H, W, 2), np.uint8)
+    yuy2[:, :, 0], yuy2[:, 0::2, 1], yuy2[:, 1::2, 1] = y, u422, v422
+    uyvy = yuy2[:, :, ::-1].copy()
+    for packed, unpack, order in ((yuy2, native_host.unpack_yuy2, (0, 1)),
+                                  (uyvy, native_host.unpack_uyvy, (1, 0))):
+        ly, lu, lv = unpack(packed)
+        want = (packed[:, :, order[0]], packed[:, 0::2, order[1]], packed[:, 1::2, order[1]])
+        assert all(np.array_equal(a, b) for a, b in zip((ly, lu, lv), want)), "native unpack"
+    bgra = rng.integers(0, 256, size=(H, W, 4), dtype=np.uint8)
+    uploads = {
+        "i420": lambda d: ingest.upload_i420(y, u, v, device=d),
+        "nv12": lambda d: ingest.upload_nv12(y, np.stack([u, v], -1), device=d),
+        "yuy2": lambda d: ingest.upload_yuy2(yuy2, device=d),
+        "uyvy": lambda d: ingest.upload_uyvy(uyvy, device=d),
+        "bgra": lambda d: ingest.upload_bgra(bgra, device=d),
+    }
+    report, frames = {}, {}
+    for name, up in uploads.items():
+        got, ref = up(dev), up("cpu")
+        err = float((got.pixels.cpu() - ref.pixels).abs().max())
+        if got.alpha is not None:
+            err = max(err, float((got.alpha.cpu() - ref.alpha).abs().max()))
+        assert err <= 1.0 / 255.0, f"upload_{name}: {err} from the CPU codec"
+        luma = got.pixels[0] if name != "bgra" else got.pixels[2]
+        src = y if name != "bgra" else bgra[:, :, 2]
+        assert float((luma.cpu() - torch.from_numpy(src.astype(np.float32) / 255.0)).abs().max()) <= 1e-7
+        ms = _wall_ms(lambda: up(dev))
+        report[name] = {"upload_err": err, "upload_ms": ms}
+        frames[name] = (got, ref)
+    downloads = {
+        "i420": ingest.download_i420, "nv12": ingest.download_nv12, "yuy2": ingest.download_yuy2,
+        "uyvy": ingest.download_uyvy, "bgra": ingest.download_bgra,
+    }
+    for name, down in downloads.items():
+        got_f, ref_f = frames[name]
+        outs = [down(got_f), down(ref_f)]
+        outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+        lsb = max(int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max()) for a, b in zip(*outs))
+        assert lsb <= 1, f"download_{name}: {lsb} LSB from the CPU codec"
+        report[name].update(download_lsb=lsb, download_ms=_wall_ms(lambda: down(got_f)))
+    print("ingest 1080p on the card (vs the CPU codec; wall ms, median of 5): " + "; ".join(
+        f"{k} up {r['upload_err']:.1e} {r['upload_ms']:.3f} ms, down {r['download_lsb']} LSB "
+        f"{r['download_ms']:.3f} ms" for k, r in report.items()) + "; native host library loaded, "
+        "YUY2/UYVY unpack equal to numpy", flush=True)
+    return report
+
+
+def _wall_ms(fn, runs: int = 5) -> float:
+    """Median host wall ms of fn() with the card drained after it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def run_checkpoint(dev, clip, tmp) -> dict:
+    """The flagship state after 30 of the clip's 60 frames saved with its
+    settings fingerprint, loaded into a fresh init of another seed, and
+    both run over the last 30 frames: every output bit-equal."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.runtime import checkpoint
+
+    filt, fmt = lvk.flagship_filter(), lvk.PixelFormat.YUV
+    n, half = clip.shape[0], clip.shape[0] // 2
+    stamps = torch.arange(n, dtype=torch.float32, device=dev) / 30.0
+    live = torch.ones((), dtype=torch.bool, device=dev)
+
+    def frame(t):
+        return lvk.Frame(pixels=clip[t].to(torch.float32) / 255.0, timestamp=stamps[t], valid=live,
+                         format=fmt)
+
+    spec = lvk.FrameSpec(H, W, 3, fmt)
+    state = filt.init(spec, device=dev, seed=0)
+    for t in range(half):
+        state, _ = filt.step(state, frame(t))
+    path = os.path.join(tmp, "snapshot.npz")
+    t0 = time.perf_counter()
+    checkpoint.save_state(path, state, filt=filt)
+    t1 = time.perf_counter()
+    restored = checkpoint.load_state(path, filt.init(spec, device=dev, seed=1), filt=filt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    size_mb = os.path.getsize(path) / 2**20
+    os.remove(path)
+    bad, valid = [], 0
+    for t in range(half, n):
+        state, a = filt.step(state, frame(t))
+        restored, b = filt.step(restored, frame(t))
+        valid += int(bool(a.valid))
+        if not (torch.equal(a.pixels, b.pixels) and torch.equal(a.valid, b.valid)
+                and torch.equal(a.timestamp, b.timestamp)):
+            bad.append(t)
+    assert not bad, f"checkpoint: the resumed run differs at frames {bad}"
+    assert valid == n - half, f"checkpoint: {valid} valid outputs after the resume"
+    print(f"checkpoint: flagship state after {half} frames saved ({size_mb:.1f} MiB, "
+          f"{(t1 - t0) * 1e3:.1f} ms), loaded into a fresh init ({(t2 - t1) * 1e3:.1f} ms); "
+          f"the next {n - half} outputs bit-equal to the uninterrupted run's", flush=True)
+    return {"save_ms": (t1 - t0) * 1e3, "load_ms": (t2 - t1) * 1e3}
+
+
+def _rodrigues(rvec: np.ndarray) -> np.ndarray:
+    theta = float(np.linalg.norm(rvec))
+    k = rvec / theta
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + math.sin(theta) * kx + (1 - math.cos(theta)) * (kx @ kx)
+
+
+def _render_board(params, rvec, tvec, dev, supersample: int = 4) -> torch.Tensor:
+    """A (H, W) f32 image of a BOARD chessboard (squares of unit side, 0.15
+    and 0.85 on a 0.5 ground) seen by the camera `params` at pose (rvec,
+    tvec), rendered on the card: each pixel averages supersample^2 samples,
+    each undistorted by fixed-point iteration of the distortion model and
+    carried onto the board plane by the inverse of its homography."""
+    from livevisionkit_tpu_torch.vision.calibration import distort_normalized
+
+    cols, rows = BOARD
+    to_board = np.linalg.inv(np.c_[_rodrigues(rvec)[:, :2], tvec])
+    m = [[float(v) for v in row] for row in to_board]
+    yy = torch.arange(H, dtype=torch.float64, device=dev)[:, None].expand(H, W)
+    xx = torch.arange(W, dtype=torch.float64, device=dev)[None, :].expand(H, W)
+    acc = torch.zeros((H, W), dtype=torch.float64, device=dev)
+    for i in range(supersample):
+        for j in range(supersample):
+            xd = (xx + ((j + 0.5) / supersample - 0.5) - params.cx) / params.fx
+            yd = (yy + ((i + 0.5) / supersample - 0.5) - params.cy) / params.fy
+            xu, yu = xd, yd
+            for _ in range(20):
+                dx, dy = distort_normalized(xu, yu, params)
+                xu, yu = xu + (xd - dx), yu + (yd - dy)
+            den = m[2][0] * xu + m[2][1] * yu + m[2][2]
+            bx = (m[0][0] * xu + m[0][1] * yu + m[0][2]) / den
+            by = (m[1][0] * xu + m[1][1] * yu + m[1][2]) / den
+            on = (bx >= -1) & (bx < cols) & (by >= -1) & (by < rows) & (den > 0)
+            acc += torch.where(on, 0.15 + 0.7 * ((torch.floor(bx) + torch.floor(by)) % 2), 0.5)
+    return (acc / supersample ** 2).to(torch.float32)
+
+
+def run_calibration(dev, rng) -> dict:
+    """BOARD_VIEWS 1080p views of a 9x6 chessboard under the known camera
+    CAMERA, at poses tilted up to ~26 degrees about each axis, rendered on
+    the card; `find_chessboard` (its response on the card) finds every
+    view, each corner within 0.5 px of its projection, and `calibrate`
+    recovers fx and fy within 2%, cx and cy within 5 px and k1 within 0.05
+    with RMS < 0.2 px (the JAX test's bounds, tests/test_calibration.py:
+    45-53)."""
+    from scipy.spatial import cKDTree
+
+    from livevisionkit_tpu_torch.vision import calibration, chessboard
+
+    cam = calibration.CameraParameters(**CAMERA)
+    cols, rows = BOARD
+    obj = np.stack(np.meshgrid(np.arange(cols, dtype=np.float64), np.arange(rows)), -1).reshape(-1, 2)
+    params = np.array([cam.fx, cam.fy, cam.cx, cam.cy, cam.k1, cam.k2, cam.p1, cam.p2, cam.k3])
+    centre = np.array([(cols - 1) / 2, (rows - 1) / 2, 0.0])
+    views, worst, t_render, t_find = [], 0.0, 0.0, 0.0
+    while len(views) < BOARD_VIEWS:
+        rvec = rng.uniform([-0.45, -0.45, -0.3], [0.45, 0.45, 0.3])
+        z = rng.uniform(11.0, 15.0)
+        at = rng.uniform([-0.35, -0.22], [0.35, 0.22])
+        tvec = np.array([at[0] * z, at[1] * z, z]) - _rodrigues(rvec) @ centre
+        gt = calibration._project(params, np.c_[obj, np.zeros(len(obj))], rvec, tvec)
+        if gt[:, 0].min() < 40 or gt[:, 0].max() > W - 40 or gt[:, 1].min() < 40 or gt[:, 1].max() > H - 40:
+            continue
+        t0 = time.perf_counter()
+        img = _render_board(cam, rvec, tvec, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        found = chessboard.find_chessboard(img, pattern=BOARD)
+        t2 = time.perf_counter()
+        t_render, t_find = t_render + t1 - t0, t_find + t2 - t1
+        assert found is not None, f"calibration: the board of view {len(views)} was not found"
+        d, idx = cKDTree(gt).query(found)
+        assert len(np.unique(idx)) == len(gt) and d.max() < 0.5, (
+            f"calibration view {len(views)}: corners {d.max():.3f} px off, {len(np.unique(idx))} distinct")
+        worst = max(worst, float(d.max()))
+        views.append(found)
+    t0 = time.perf_counter()
+    est, rms = calibration.calibrate([obj] * len(views), views, (H, W))
+    t_cal = time.perf_counter() - t0
+    errs = {"fx": abs(est.fx - cam.fx) / cam.fx, "fy": abs(est.fy - cam.fy) / cam.fy,
+            "cx": abs(est.cx - cam.cx), "cy": abs(est.cy - cam.cy), "k1": abs(est.k1 - cam.k1)}
+    assert (rms < 0.2 and errs["fx"] < 0.02 and errs["fy"] < 0.02 and errs["cx"] < 5
+            and errs["cy"] < 5 and errs["k1"] < 0.05), f"calibration: {est}, RMS {rms}"
+    print(f"calibration: {len(views)} 1080p views of a {cols}x{rows} board found (corners within "
+          f"{worst:.3f} px of their projections; render {t_render:.2f} s, find {t_find:.2f} s); "
+          f"calibrate in {t_cal:.2f} s: fx {est.fx:.2f} (err {100 * errs['fx']:.3f}%), fy "
+          f"{est.fy:.2f} ({100 * errs['fy']:.3f}%), cx {est.cx:.2f}, cy {est.cy:.2f}, k1 "
+          f"{est.k1:.4f}, RMS {rms:.4f} px", flush=True)
+    return {"rms": rms, **errs}
+
+
+def profile_runtime(dev, clip, tmp, profile_dir: str) -> None:
+    """torch.profiler tables of five steps of the lvk chain's step and of
+    lens correction alone in each mode (`--profile`), on YUV frames of the
+    clip."""
+    import livevisionkit_tpu_torch as lvk
+
+    fmt = lvk.PixelFormat.YUV
+    frames = [lvk.Frame.create(clip[t].to(torch.float32) / 255.0, timestamp=t / 30.0, fmt=fmt)
+              for t in range(5)]
+    spec = lvk.FrameSpec(H, W, 3, fmt)
+    filters = {"lvk_chain": _lvk_chain(tmp)}
+    for mode in ("easu", "bilinear"):
+        filters[f"lens_correction_{mode}"] = lvk.LensCorrectionFilter(
+            parameters=lvk.CameraParameters(**CAMERA), warp_filter=mode)
+    for name, filt in filters.items():
+        state = filt.init(spec, device=dev)
+        filt.step(state, frames[0])
+        _profile(filt.step, state, frames, os.path.join(profile_dir, name))
+
+
+def run_runtime_slice(dev, clip, profile_dir: str | None) -> dict:
+    """The runtime slice's eight phases over stream 0 of the u8 clips, on a
+    generator of their own, with a temporary directory for the lc profile,
+    the trace and the snapshot."""
+    import tempfile
+
+    rng = np.random.default_rng(2)
+    frames = _bgr_reader_frames(clip)
+    with tempfile.TemporaryDirectory() as tmp:
+        if profile_dir:
+            profile_runtime(dev, clip, tmp, profile_dir)
+        rep = {"stream": run_lvk_stream(dev, frames, tmp),
+               "profile": run_lvk_profile(dev, frames, tmp),
+               "trace": run_lvk_trace(dev, frames, tmp),
+               "lc": check_lens_correction(dev, clip),
+               "clip": run_process_clip(dev, clip),
+               "ingest": check_ingest(dev, rng),
+               "checkpoint": run_checkpoint(dev, clip, tmp),
+               "calibration": run_calibration(dev, rng)}
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
@@ -1727,6 +2292,7 @@ def main() -> int:
     alone = check_filters_alone(dev, rng_e, fc.pop("frame0"))
     adb = run_adb_cas_multistream(dev, poses, clips, args.profile)
     dbg = run_debug(dev, rng_e, clips)
+    rt = run_runtime_slice(dev, clips[0], args.profile)
     del clips
 
     def entry(name, source, replaces, launches, rep, library_ms=None):
@@ -1744,7 +2310,10 @@ def main() -> int:
     # bilinear warp's grid_sample time is printed above.
     # The debug phase's K1 and K2 launches are all at four planes (colour +
     # alpha): the C = 4 rows.
-    paths = (sl, ms, ch, chx, me, mex, fc, adb)
+    # The runtime slice's counted drives: the lvk stream (K1 twice a frame),
+    # lens correction alone in EASU mode and process_clip; lens correction
+    # in bilinear mode is the warp_bilinear row.
+    paths = (sl, ms, ch, chx, me, mex, fc, adb, rt["stream"], rt["lc"]["easu"], rt["clip"])
     debug_lk = dbg["solo_launches"]["lk_track"]
     debug_lk_x8 = dbg["multi_launches"]["lk_track"]
     easu_2x = dict(easu_rep[OUT], max_abs_err=max(r["max_abs_err"] for r in easu_rep.values()))
@@ -1755,7 +2324,10 @@ def main() -> int:
         entry("warp_c4", "warp.cu", "warp.py:312", dbg["solo_launches"]["warp"], k1_c4["flagship"]),
         entry("warp_batched_c4", "warp.cu", "warp.py:829", dbg["multi_launches"]["warp_batched"],
               k2_c4),
-        entry("lk_track", "lk.cu", "lk.py:255", launched("lk_track", sl, ch, me, fc) + debug_lk,
+        entry("warp_bilinear", "warp.cu", "warp.py:81", rt["lc"]["bilinear"]["launches"]["warp"],
+              rt["lc"]["bilinear"], library_ms=rt["lc"]["bilinear"]["library_ms"]),
+        entry("lk_track", "lk.cu", "lk.py:255",
+              launched("lk_track", sl, ch, me, fc, rt["stream"], rt["clip"]) + debug_lk,
               lk_rep["lk_track"]),
         entry("lk_track_x8", "lk.cu", "lk.py:255", launched("lk_track", ms, chx, mex, adb) + debug_lk_x8,
               lk_b_rep),
@@ -1783,7 +2355,11 @@ def main() -> int:
           f" | {STREAMS}-stream vs+adb+cas tick {adb['gpu_ms']:.4f} / {adb['wall_ms']:.4f}"
           f" | deblock 1080p {alone['deblock_1080p']['ms']:.4f} ms, 4K {alone['deblock_4k']['ms']:.4f}"
           f" | CAS 4K {alone['cas_4k']['ms']:.4f} | K1 C=4 {k1_c4['flagship']['ms']:.4f}"
-          f" | K2 x{STREAMS} C=4 {k2_c4['ms']:.4f}",
+          f" | K2 x{STREAMS} C=4 {k2_c4['ms']:.4f}"
+          f" | lvk stream (lc+vs+adb) {rt['stream']['fps']:.2f} frames/s, p50/p95/p99 "
+          f"{rt['stream']['p50_ms']:.2f}/{rt['stream']['p95_ms']:.2f}/{rt['stream']['p99_ms']:.2f} ms"
+          f" | lc K1 easu {rt['lc']['easu']['ms']:.4f}, bilinear {rt['lc']['bilinear']['ms']:.4f} ms"
+          f" | process_clip {rt['clip']['gpu_ms']:.4f} / {rt['clip']['wall_ms']:.4f} ms/frame",
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

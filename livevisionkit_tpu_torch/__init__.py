@@ -1,6 +1,7 @@
 """LiveVisionKit on PyTorch + CUDA for one NVIDIA H100: the stabilizer
 (homography and mesh modes), the FSR scaler (EASU upscale + RCAS sharpen),
-the deblocker, CAS and colour conversion.
+the deblocker, CAS, colour conversion and lens correction, with the
+streaming runtime and the `lvk-torch` CLI (runtime/).
 
 A port of ``livevisionkit_tpu`` (the JAX reference, which stays beside it):
 plain tensor code is PyTorch, and the hot kernels are hand-written CUDA C++
@@ -41,6 +42,7 @@ from livevisionkit_tpu_torch.filters.base import (  # noqa: E402
     VideoFilter,
 )
 from livevisionkit_tpu_torch.filters.deblocking import DeblockingFilter  # noqa: E402
+from livevisionkit_tpu_torch.filters.lens_correction import LensCorrectionFilter  # noqa: E402
 from livevisionkit_tpu_torch.filters.scaling import ScalingFilter  # noqa: E402
 from livevisionkit_tpu_torch.filters.sharpening import CASFilter  # noqa: E402
 from livevisionkit_tpu_torch.filters.stabilization import (  # noqa: E402
@@ -50,6 +52,7 @@ from livevisionkit_tpu_torch.filters.stabilization import (  # noqa: E402
 from livevisionkit_tpu_torch.models.homography import Homography  # noqa: E402
 from livevisionkit_tpu_torch.models.warp_field import WarpField  # noqa: E402
 from livevisionkit_tpu_torch.types import PixelFormat  # noqa: E402
+from livevisionkit_tpu_torch.vision.calibration import CameraParameters  # noqa: E402
 
 __all__ = [
     "Frame",
@@ -65,6 +68,8 @@ __all__ = [
     "DeblockingFilter",
     "ScalingFilter",
     "CASFilter",
+    "LensCorrectionFilter",
+    "CameraParameters",
     "flagship_filter",
     "FeatureDetectorSettings",
     "OpticalFlowSettings",

@@ -22,10 +22,10 @@ Design, as in the JAX package:
     fans results out to per-stream writer threads.
 
 On a CUDA device a batch goes up from a ring of `inflight + 1` pinned host
-buffers with a non-blocking copy, and a buffer is refilled only after the
-event recorded behind its copy has passed; outputs come back the same way
-into pinned memory.  The per-tick timestamps and flags ride in the same
-upload, so the loop makes no synchronizing copy.
+buffers with a non-blocking copy, and outputs come back the same way into
+pinned memory (runtime/transfer.py, shared with the solo driver).  The
+per-tick timestamps and flags ride in the same upload, so the loop makes
+no synchronizing copy.
 """
 
 from __future__ import annotations
@@ -42,6 +42,8 @@ import torch
 from livevisionkit_tpu_torch.data.frame import Frame
 from livevisionkit_tpu_torch.filters.base import FrameSpec, VideoFilter
 from livevisionkit_tpu_torch.parallel.streams import MultiStreamFilter, batched
+from livevisionkit_tpu_torch.runtime.stream import _ingest
+from livevisionkit_tpu_torch.runtime.transfer import Uploader, download
 from livevisionkit_tpu_torch.types import PixelFormat
 from livevisionkit_tpu_torch.utils.profiling import Stopwatch
 
@@ -61,52 +63,6 @@ class MultiStreamStats:
         if avg <= 0 or self.batches == 0:
             return 0.0
         return (self.frames_out / self.batches) / avg
-
-
-class _Uploader:
-    """Host batches to the device: (S, H, W, 3) u8 frames and an (S, 3) f32
-    block of (timestamp, live, drain) per tick.  On a CUDA device they are
-    staged in a ring of pinned buffers and copied without blocking; a slot
-    is refilled only after the event behind its last copy has passed."""
-
-    def __init__(self, frame_shape: tuple, n_streams: int, device: torch.device, slots: int):
-        self.device = device
-        self.cuda = device.type == "cuda"
-        self.frames = [torch.empty((n_streams, *frame_shape), dtype=torch.uint8, pin_memory=self.cuda)
-                       for _ in range(slots)]
-        self.meta = [torch.empty((n_streams, 3), dtype=torch.float32, pin_memory=self.cuda)
-                     for _ in range(slots)]
-        self.events: list = [None] * slots
-        self.slot = 0
-
-    def __call__(self, raws: Sequence[np.ndarray], tss, lives, drains):
-        k = self.slot
-        self.slot = (k + 1) % len(self.frames)
-        if self.events[k] is not None:
-            self.events[k].synchronize()
-        np.stack(raws, out=self.frames[k].numpy())
-        self.meta[k].numpy()[:] = np.stack([tss, lives, drains], axis=1)
-        if not self.cuda:
-            frames, meta = self.frames[k].clone(), self.meta[k].clone()
-        else:
-            frames = self.frames[k].to(self.device, non_blocking=True)
-            meta = self.meta[k].to(self.device, non_blocking=True)
-            self.events[k] = torch.cuda.Event()
-            self.events[k].record()
-        return frames, meta[:, 0], meta[:, 1] > 0.5, meta[:, 2] > 0.5
-
-
-def _download(out: tuple[torch.Tensor, ...]):
-    """Start copying a tick's outputs to the host; return the host tensors
-    and an event to wait on (None on the CPU)."""
-    if out[0].device.type != "cuda":
-        return out, None
-    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in out)
-    for h, t in zip(host, out):
-        h.copy_(t, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
 
 
 def stream_multi(
@@ -179,8 +135,7 @@ def stream_multi(
     bgr = PixelFormat.BGR
 
     def one_step(state, raw_u8, ts, live, drain):
-        x = raw_u8.to(torch.float32).permute(2, 0, 1) * (1.0 / 255.0)
-        frame = Frame(pixels=x, timestamp=ts, valid=live, format=bgr).reformat(work_format)
+        frame = Frame(pixels=_ingest(raw_u8), timestamp=ts, valid=live, format=bgr).reformat(work_format)
         state, out = filt.step(state, frame, drain=drain)
         out = out.reformat(bgr)
         return state, (out.pixels, out.timestamp, out.valid)
@@ -194,6 +149,15 @@ def stream_multi(
     states = None
     upload = None
     pending: deque = deque()
+
+    def send(raws, tss, lives, drains):
+        """Upload one tick: (S, H, W, 3) u8 frames and an (S, 3) f32 block
+        of (timestamp, live, drain)."""
+        frames, meta = upload.host()
+        np.stack(raws, out=frames)
+        meta[:] = np.stack([tss, lives, drains], axis=1)
+        frames, meta = upload.send()
+        return frames, meta[:, 0], meta[:, 1] > 0.5, meta[:, 2] > 0.5
 
     def drain(block_all: bool):
         while pending and (block_all or len(pending) > inflight):
@@ -263,11 +227,12 @@ def stream_multi(
                 spec = FrameSpec(height=h, width=w, channels=work_format.channels,
                                  format=work_format)
                 states = multi.init(spec, device=device)
-                upload = _Uploader(raws[0].shape, n, device, inflight + 1)
+                upload = Uploader([((n, *raws[0].shape), torch.uint8), ((n, 3), torch.float32)],
+                                  device, inflight + 1)
             stats.batch_time.tick()
-            states, out = step(states, *upload(raws, tss, lives, eof))
+            states, out = step(states, *send(raws, tss, lives, eof))
             stats.batches += 1
-            pending.append(_download(out))
+            pending.append(download(out))
             drain(block_all=False)
         # Flush: run `delay` bubble batches so frames still inside delay
         # queues emit (the reference's stream() drops them at termination,
@@ -275,9 +240,9 @@ def stream_multi(
         if flush and states is not None and not stop_event.is_set():
             bubble = [np.zeros_like(last_frame[0])] * n
             for _ in range(delay):
-                states, out = step(states, *upload(bubble, [0.0] * n, [False] * n, [True] * n))
+                states, out = step(states, *send(bubble, [0.0] * n, [False] * n, [True] * n))
                 stats.batches += 1
-                pending.append(_download(out))
+                pending.append(download(out))
                 drain(block_all=False)
         drain(block_all=True)
     finally:

@@ -1,18 +1,25 @@
 """Frame timing instrumentation (counterpart of
-livevisionkit_tpu/utils/profiling.py; reference Timing/Stopwatch.cpp).
+livevisionkit_tpu/utils/profiling.py; reference Timing/Stopwatch.cpp,
+Timing/TickTimer.hpp and the OBS plugin's ScopedProfiler).
 
-Only `Stopwatch` is ported so far, for the multi-stream driver's batch
-timing (runtime/multistream.py).  In throughput mode the driver does not
-wait for the device per batch, so a `tick` lap is the wall-clock interval
-between batches, the honest streaming number.  The rest of the module
-(TickTimer, the stage timers) waits for the runtime slice.
+`Stopwatch` keeps a ring of intervals.  In throughput mode the runtimes do
+not wait for the device per frame, so a `tick` lap is the wall-clock
+interval between frames, the honest streaming number.  `TickTimer` is the
+delta / fixed-timestep timer of the CLI's rate-locked display.
+`trace_scope` and `frame_scope` name spans on the `torch.profiler`
+timeline, and `DeviceTrace` records one (host spans and, on a CUDA
+device, its kernels) into a Chrome trace for the CLI's `--trace`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 import time
 from collections import deque
+
+import torch
 
 
 class Stopwatch:
@@ -63,3 +70,82 @@ class Stopwatch:
 
     def deviation_ms(self) -> float:
         return self.deviation() * 1000.0
+
+
+class TickTimer:
+    """Delta/tick-count timer with an optional fixed timestep (reference
+    Timing/TickTimer.hpp:24-43): `tick()` returns the time since the last
+    tick; `tick(timestep)` returns True only once `timestep` has elapsed
+    (fps-locked display, VideoProcessor.cpp:205-211)."""
+
+    def __init__(self):
+        self._last: float | None = None
+        self._acc = 0.0
+        self.tick_count = 0
+
+    def tick(self, timestep: float | None = None) -> bool | float:
+        now = time.perf_counter()
+        delta = 0.0 if self._last is None else now - self._last
+        self._last = now
+        if timestep is None:
+            self.tick_count += 1
+            return delta
+        self._acc += delta
+        if self._acc >= timestep:
+            self._acc = math.fmod(self._acc, timestep) if timestep > 0 else 0.0
+            self.tick_count += 1
+            return True
+        return False
+
+    def reset(self):
+        self._last = None
+        self._acc = 0.0
+        self.tick_count = 0
+
+
+@contextlib.contextmanager
+def trace_scope(name: str):
+    """Named span on the profiler timeline (reference LVK_PROFILE,
+    ScopedProfiler.cpp:26-37); next to free when no profile is active."""
+    with torch.profiler.record_function(name):
+        yield
+
+
+@contextlib.contextmanager
+def frame_scope(step: int):
+    """Per-frame span, `frame#<step>`: groups the scopes and kernels of one
+    frame (the unit the reference's profiler tree roots at)."""
+    with torch.profiler.record_function(f"frame#{step}"):
+        yield
+
+
+class DeviceTrace:
+    """`torch.profiler` over a block for the CLI's --trace flag: host spans,
+    and the kernels when `device` is a CUDA device, written on exit as a
+    Chrome trace (`trace.json`, open in Perfetto or chrome://tracing) into
+    `logdir`.  A None `logdir` makes it a no-op."""
+
+    def __init__(self, logdir: str | None, device: torch.device | str = "cuda"):
+        self.logdir = logdir
+        self.device = torch.device(device)
+        self.path = None if logdir is None else os.path.join(logdir, "trace.json")
+        self._prof = None
+
+    def __enter__(self):
+        if self.logdir:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=activities)
+            self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            prof, self._prof = self._prof, None
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            prof.__exit__(*exc)
+            os.makedirs(self.logdir, exist_ok=True)
+            prof.export_chrome_trace(self.path)
+        return False

@@ -687,3 +687,52 @@ def test_warp_kernel_on_mesh_map(cuda, dtype):
         assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
     else:
         assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["easu", "bilinear"])
+@pytest.mark.parametrize("nc", [3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("size", [(121, 163), (120, 160)])
+def test_warp_kernel_on_undistort_map(cuda, size, dtype, nc, mode):
+    """K1 on the lens-correction filter's dense map (a barrel undistortion,
+    k1 = -0.25, at alpha 0.5 so the border samples leave the frame), at odd
+    and even sizes, colour (C = 3) and colour + alpha (C = 4): within K1's
+    bounds of the plain version (f32 atol 1e-4; u8 at most 1 LSB on at
+    most 0.1% of pixels), and the filter's step is one K1 launch."""
+    from livevisionkit_tpu_torch.filters.lens_correction import LensCorrectionFilter
+    from livevisionkit_tpu_torch.data.frame import Frame
+    from livevisionkit_tpu_torch.filters.base import FrameSpec
+    from livevisionkit_tpu_torch.vision.calibration import CameraParameters, undistort_field
+
+    h, w = size
+    params = CameraParameters(fx=0.9 * w, fy=0.9 * w, cx=(w - 1) / 2 + 1.5, cy=(h - 1) / 2 - 2.0,
+                              k1=-0.25, k2=0.05)
+    field = undistort_field(params, size, alpha=0.5, device=cuda)
+    smap = field.sample_map(size).contiguous()
+    out = (smap[0] < 0) | (smap[0] > h - 1) | (smap[1] < 0) | (smap[1] > w - 1)
+    assert int(out.sum()) > 0
+    rng = np.random.default_rng(9)
+    img = torch.from_numpy(rng.uniform(0.0, 1.0, size=(nc, h, w)).astype(np.float32))
+    img[:, 30:70, 50:120] = 0.9
+    img = img.to(cuda)
+    if dtype == "uint8":
+        img = torch.clamp(img * 255.0 + 0.5, 0, 255).to(torch.uint8)
+    got = warp_kernel.warp(img, smap, fill=0.0, filter_mode=mode)
+    want = remap_ops.remap_plain(img, smap, fill=0.0, filter_mode=mode)
+    torch.cuda.synchronize()
+    if dtype == "uint8":
+        d = (got.int() - want.int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+    else:
+        assert float((got - want).abs().max()) <= 1e-4
+    if dtype == "float32":
+        filt = LensCorrectionFilter(parameters=params, alpha=0.5, warp_filter=mode)
+        alpha = nc == 4
+        state = filt.init(FrameSpec(h, w, 3, PixelFormat.YUV, has_alpha=alpha), device=cuda)
+        frame = Frame.create(img[:3], fmt=PixelFormat.YUV, alpha=img[3] if alpha else None)
+        before = warp_kernel.warp.launches
+        _, res = filt.step(state, frame)
+        assert warp_kernel.warp.launches == before + 1
+        step_px = torch.cat([res.pixels, res.alpha[None]]) if alpha else res.pixels
+        assert torch.equal(step_px, got)
