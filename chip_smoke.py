@@ -37,6 +37,12 @@ on its undistort map against plain, at three and four planes, beside
 F.grid_sample); `process_clip` bit-equal to the frame loop; the ingest
 codecs against the CPU codecs and the native host library; a snapshot
 resumed bit-equal; and a chessboard calibration of a known camera.
+Then the multi-device slice, on a mesh of the host's cards when it has
+four, else of cuda:0 repeated: the tile-sharded 4K halo remap (K1 once a
+tile, against solo K1 and each tile against plain), `process_clip_sharded`
+of 192 1080p frames in four chunks against `process_clip`, the
+feature-sharded mesh solve against the solo one, `dryrun_multichip(4)` at
+1080p and 4K, and two processes of tools/run_multiproc_torch.py.
 Each drive checks that its step went through its kernels once per frame
 (or tick) and that the outputs are right.  It also times the scaler alone
 at 1080p -> 4K.  Every failure raises.  The last line is a JSON object
@@ -256,16 +262,15 @@ def _launches() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
-def _shaky_render(dev, rng, size=(H, W)):
-    """A 60-frame YUV shaky camera path (1080p by default) over a texture
-    larger than the frame: slow drift + per-frame jitter (px, rad).
-    Returns the frame -> texture poses and a function rendering frame t's
-    (3, h, w) pixels."""
+def _shaky_render(dev, rng, size=(H, W), n=N_FRAMES):
+    """An n-frame YUV shaky camera path (60 frames at 1080p by default) over
+    a texture larger than the frame: slow drift + per-frame jitter (px,
+    rad).  Returns the frame -> texture poses and a function rendering
+    frame t's (3, h, w) pixels."""
     from livevisionkit_tpu_torch.ops import remap as remap_ops
 
     h, w = size
     tex = torch.from_numpy(_texture(h + 320, w + 320, rng)).to(dev)[None].contiguous()
-    n = N_FRAMES
     tx = 100.0 + 1.0 * np.arange(n) + rng.uniform(-6.0, 6.0, n)
     ty = 100.0 + 0.5 * np.arange(n) + rng.uniform(-6.0, 6.0, n)
     ang = rng.uniform(-0.003, 0.003, n)
@@ -2233,6 +2238,309 @@ def run_runtime_slice(dev, clip, profile_dir: str | None) -> dict:
     return rep
 
 
+# ------------------------------------------------------------------------
+# The multi-device slice: a mesh of torch devices driven by one process
+# (distinct cards when there are enough, else cuda:0 repeated), the
+# tile-sharded halo remap (K1 per tile), the feature-sharded mesh solve,
+# temporally sharded process_clip, the dry run and two processes.
+
+N_TILES = 4
+TILE_HALO = 192  # the dry run's halo: the corrective limit's reach at 4K
+CLIP_T, CLIP_CHUNKS, CLIP_OVERLAP = 192, 4, 48  # overlap: the JAX default
+
+
+def mesh_devices(dev, n: int) -> list:
+    """n distinct cards when the host has them, else `dev` n times."""
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [dev] * n
+
+
+def _sync_checked(fn):
+    """fn() with synchronizing calls made errors."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def check_warp_tiled(dev, rng) -> dict:
+    """`remap_sharded` at 3x2160x3840, YUV u8 and f32, EASU and bilinear,
+    over N_TILES tiles with halo 192 under the dry run's similarity
+    (1.001, 0.002, 5, -3): four K1 launches a call, each on a halo-padded
+    stripe wider than its output, no host sync; the result against K1's
+    solo launch on the whole frame (f32 within 1e-5, u8 within 1 LSB), and
+    each tile's K1 against its plain version on the same stripe (f32
+    within 1e-4, u8 1 LSB on at most 1e-3 of pixels), with the blocks that
+    gather from device memory."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.ops import remap as remap_ops
+    from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
+    from livevisionkit_tpu_torch.parallel import spatial
+    from livevisionkit_tpu_torch.parallel.streams import Mesh
+
+    h, w = UHD
+    devices = mesh_devices(dev, N_TILES)
+    mesh = Mesh(devices, ("tile",))
+    luma = torch.from_numpy(_texture(h, w, rng)).to(dev)
+    img_f = torch.stack([luma, 0.25 + 0.5 * luma.flip(0), 0.75 - 0.5 * luma.flip(1)]).contiguous()
+    img_u8 = torch.clamp(img_f * 255.0 + 0.5, 0, 255).to(torch.uint8)
+    smap = _similarity(1.001, 0.002, 5.0, -3.0, dev).sample_map(UHD).contiguous()
+    fmt = lvk.PixelFormat.YUV
+    report = {"devices": sorted({str(d) for d in devices})}
+    for mode in ("easu", "bilinear"):
+        kw = dict(fill=0.0, halo=TILE_HALO, filter_mode=mode, fmt=fmt)
+        rep = {}
+        for name, img in (("f32", img_f), ("u8", img_u8)):
+            before = warp_kernel.warp.launches
+            tiled = _sync_checked(lambda: spatial.remap_sharded(img, smap, mesh, **kw))
+            launched = warp_kernel.warp.launches - before
+            assert launched == N_TILES, f"warp_tiled {mode} {name}: {launched} K1 launches a call"
+            solo = warp_kernel.warp(img, smap, fill=0.0, filter_mode=mode, fmt=fmt)
+            if name == "f32":
+                err = float((tiled - solo).abs().max())
+                assert err <= 1e-5, f"warp_tiled {mode} f32 differs from solo K1 by {err} > 1e-5"
+            else:
+                err, _ = _u8_diff(tiled, solo)
+                assert err <= 1, f"warp_tiled {mode} u8 differs from solo K1 by {err} LSB"
+            rep[f"{name}_vs_solo"] = err
+            # Each tile's launch against its plain version on the same stripe.
+            plain_err, paths = 0.0, [0, 0]
+            for padded, local_map in spatial._stripes(img, smap, devices, TILE_HALO):
+                k = warp_kernel.warp(padded, local_map, fill=0.0, filter_mode=mode, fmt=fmt)
+                p = remap_ops.remap_plain(padded, local_map, fill=0.0, filter_mode=mode, fmt=fmt)
+                if name == "f32":
+                    plain_err = max(plain_err, float((k - p).abs().max()))
+                else:
+                    lsb, frac = _u8_diff(k, p)
+                    assert lsb <= 1 and frac <= 1e-3, (
+                        f"warp_tiled {mode} u8 tile: max {lsb} LSB on {frac:.2e} of pixels")
+                    plain_err = max(plain_err, lsb)
+                if mode == "easu" and name == "u8":
+                    used, over = _paths(lambda c: warp_kernel.warp(padded, local_map, fill=0.0,
+                                                                   fmt=fmt, block_paths=c),
+                                        padded.device)
+                    paths = [paths[0] + used, paths[1] + over]
+            if name == "f32":
+                assert plain_err <= 1e-4, f"warp_tiled {mode} f32 tile differs from plain by {plain_err}"
+            rep[f"{name}_vs_plain"] = plain_err
+            if mode == "easu" and name == "u8":
+                rep["block_paths"] = paths
+        stripes = spatial._stripes(img_u8, smap, devices, TILE_HALO)
+        rep["ms"] = _median_ms(lambda: spatial.remap_sharded(img_u8, smap, mesh, **kw))
+        rep["solo_ms"] = _median_ms(lambda: warp_kernel.warp(img_u8, smap, fill=0.0, filter_mode=mode,
+                                                             fmt=fmt))
+        rep["plain_ms"] = _median_ms(lambda: [remap_ops.remap_plain(p, m, fill=0.0, filter_mode=mode,
+                                                                    fmt=fmt) for p, m in stripes],
+                                     runs=5)
+        rep["max_abs_err"] = rep["u8_vs_plain"]
+        rep["call_launches"], rep["busy_ms"] = _kernel_launches(
+            lambda: spatial.remap_sharded(img_u8, smap, mesh, **kw))
+        src_w = stripes[0][0].shape[-1]
+        print(f"K1 per tile ({mode}): {N_TILES} tiles on {report['devices']}, 3x{h}x{w // N_TILES} "
+              f"outputs from 3x{h}x{src_w} padded sources, {launched} K1 launches a call; vs solo K1 "
+              f"f32 {rep['f32_vs_solo']:.3e}, u8 {rep['u8_vs_solo']} LSB; tiles vs plain f32 "
+              f"{rep['f32_vs_plain']:.3e}, u8 {rep['u8_vs_plain']} LSB"
+              + (f"; {rep['block_paths'][1]} of {rep['block_paths'][0]} blocks gather from device "
+                 f"memory" if mode == "easu" else "")
+              + f"; tiled call {rep['ms']:.4f} ms ({rep['call_launches']:.0f} launches, "
+              f"{rep['busy_ms']:.4f} ms device busy), solo K1 {rep['solo_ms']:.4f} ms, plain tiles "
+              f"{rep['plain_ms']:.4f} ms (u8, median)", flush=True)
+        report[mode] = rep
+    n_easu, n_src = _easu_work(smap, h, w)
+    report["easu"]["bound_ms"], report["easu"]["bound_by"] = _bound(
+        img_u8.numel() * 2 + smap.numel() * 4, _easu_ops(n_easu, n_src, 3))
+    print(f"K1 per tile easu: bound {report['easu']['bound_ms']:.4f} ms "
+          f"({report['easu']['bound_by']}; the whole frame's bytes and operations, as solo)",
+          flush=True)
+    return report
+
+
+def run_sharded_clip(dev, rng) -> dict:
+    """`process_clip_sharded` of the flagship over a CLIP_T-frame shaky
+    1080p YUV clip on the card, CLIP_CHUNKS `time` chunks, overlap 48, with
+    synchronizing calls made errors: one K2 and one K3 launch a tick (the
+    chunks share the card: one CLIP_CHUNKS-stream step a tick), against
+    `process_clip` on the same clip by the JAX test's rule
+    (tests/test_offline_sharded.py:60-74): >= 70% of frames valid in both,
+    timestamps within 1e-6, mean pixel difference < 0.01."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.parallel.streams import Mesh
+    from livevisionkit_tpu_torch.runtime.offline import process_clip, process_clip_sharded
+
+    n, fmt = CLIP_T, lvk.PixelFormat.YUV
+    _, pixels = _shaky_render(dev, rng, n=n)
+    clip = torch.stack([pixels(t) for t in range(n)])  # (192, 3, 1080, 1920) f32, 4.8 GB
+    devices = mesh_devices(dev, CLIP_CHUNKS)
+    mesh = Mesh(devices, ("time",))
+    filt = lvk.flagship_filter()
+    # One step on a throwaway state on each card fills the per-shape
+    # caches (the resize weights, kept per device), so the sync-checked
+    # runs below meet no first-use upload.
+    for d in set(devices):
+        filt.step(filt.init(lvk.FrameSpec(H, W, 3, fmt), device=d),
+                  lvk.Frame.create(clip[0].to(d), timestamp=0.0, fmt=fmt))
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        _reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = _sync_checked(fn)
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end) / n, (time.perf_counter() - t0) * 1e3 / n, _launches()
+
+    serial, s_gpu, s_wall, s_launch = timed(lambda: process_clip(filt, clip, fmt, device=dev)[1])
+    assert s_launch == _want(warp=n, lk_track=n), f"process_clip: launches {s_launch}"
+    sharded, gpu_ms, wall_ms, launches = timed(
+        lambda: process_clip_sharded(filt, clip, fmt, mesh, overlap=CLIP_OVERLAP))
+    ticks = CLIP_OVERLAP + -(-n // CLIP_CHUNKS)
+    if len(set(devices)) == 1:
+        want = _want(warp_batched=ticks, lk_track=ticks)
+    else:
+        want = _want(warp_batched=ticks * CLIP_CHUNKS, lk_track=ticks * CLIP_CHUNKS)
+    assert launches == want, f"process_clip_sharded: launches {launches}, want {want}"
+    assert sharded.pixels.shape == serial.pixels.shape
+    sv, cv = serial.valid.cpu().numpy(), sharded.valid.cpu().numpy()
+    both = sv & cv
+    assert both.sum() > 0.7 * n, f"process_clip_sharded: {both.sum()} of {n} frames valid in both"
+    keep = torch.from_numpy(both).to(dev)
+    dt = float((serial.timestamp[keep] - sharded.timestamp[keep]).abs().max())
+    assert dt <= 1e-6, f"process_clip_sharded: timestamps {dt} apart"
+    diff = (serial.pixels[keep] - sharded.pixels[keep]).abs().mean(dim=(1, 2, 3))
+    mean_diff = float(diff.mean())
+    assert mean_diff < 0.01, f"process_clip_sharded: mean pixel difference {mean_diff}"
+    assert bool(torch.isfinite(sharded.pixels).all())
+    print(f"process_clip_sharded: {n} 1080p frames of the flagship in {CLIP_CHUNKS} chunks on "
+          f"{sorted({str(d) for d in devices})}, overlap {CLIP_OVERLAP}: {ticks} ticks, launches "
+          f"{launches}; {int(cv.sum())} valid ({int(sv.sum())} serial), {int(both.sum())} in both, "
+          f"mean |pixel diff| {mean_diff:.3e} (max frame {float(diff.max()):.3e}); "
+          f"{gpu_ms:.4f} ms/frame device, {wall_ms:.4f} ms/frame host; process_clip "
+          f"{s_gpu:.4f} / {s_wall:.4f} ms/frame", flush=True)
+    return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms, "serial_gpu_ms": s_gpu,
+            "serial_wall_ms": s_wall, "mean_diff": mean_diff, "both": int(both.sum())}
+
+
+def run_distributed_solve(dev, rng) -> dict:
+    """`estimate_sharded` of the vector-field preset's 16x16 field from the
+    510 features of a 1080p mesh step (272x480 detection), over N_TILES
+    tiles (510 padded to 512 with zero-weight features), with synchronizing
+    calls made errors, against the solo `mesh_motion.estimate`: offsets
+    within 1e-4 detection px, the same inliers."""
+    from livevisionkit_tpu_torch.models.warp_field import WarpField
+    from livevisionkit_tpu_torch.parallel.distributed_solve import estimate_sharded
+    from livevisionkit_tpu_torch.parallel.streams import Mesh
+    from livevisionkit_tpu_torch.presets import stabilization_preset
+    from livevisionkit_tpu_torch.vision import mesh_motion
+
+    tracker = stabilization_preset(model="field").tracker
+    res, det, settings = tuple(tracker.motion_resolution), tuple(tracker.detection_size), tracker.mesh
+    assert res == (16, 16) and det == (272, 480)
+    n = 510  # the 17x30 grid's features
+    dh, dw = det
+    pts = np.stack([rng.uniform(4, dw - 5, n), rng.uniform(4, dh - 5, n)], -1).astype(np.float32)
+    # A pan plus a smooth local wobble; 40 gross outliers.
+    disp = np.stack([3.0 + 1.5 * np.sin(pts[:, 1] / 40.0), -2.0 + 1.2 * np.cos(pts[:, 0] / 60.0)], -1)
+    src = pts + disp.astype(np.float32)
+    bad = rng.choice(n, 40, replace=False)
+    src[bad] += rng.uniform(8, 20, size=(40, 2)).astype(np.float32)
+    src_t, dst_t = torch.from_numpy(src).to(dev), torch.from_numpy(pts).to(dev)
+    weights = torch.ones(n, device=dev)
+    glob = WarpField.from_homography(_similarity(1.0, 0.0, 3.0, -2.0, dev), res, det)
+    prev = WarpField(offsets=torch.zeros((2, *res), device=dev))
+    scale = torch.ones((), device=dev)
+    args = (src_t, dst_t, weights, glob, det, settings)
+    devices = mesh_devices(dev, N_TILES)
+    mesh = Mesh(devices, ("tile",))
+    field, inl, mres = _sync_checked(lambda: estimate_sharded(*args, mesh, prev_local=prev,
+                                                              prev_weight_scale=scale))
+    solo, solo_inl, solo_res = mesh_motion.estimate(*args, prev, scale)
+    px = torch.tensor([dh - 1, dw - 1], dtype=torch.float32, device=dev).reshape(2, 1, 1)
+    err = float(((field.offsets - solo.offsets) * px).abs().max())
+    assert err <= 1e-4, f"estimate_sharded: offsets {err} px from solo"
+    assert torch.equal(inl, solo_inl), "estimate_sharded: inliers differ from solo"
+    ms = _median_ms(lambda: estimate_sharded(*args, mesh, prev_local=prev, prev_weight_scale=scale),
+                    runs=5)
+    solo_ms = _median_ms(lambda: mesh_motion.estimate(*args, prev, scale), runs=5)
+    print(f"estimate_sharded: {n} features over {N_TILES} tiles on {sorted({str(d) for d in devices})}"
+          f", 16x16 field: offsets {err:.3e} px from solo, inliers equal ({int(inl.sum())} of {n}), "
+          f"mean residual {float(mres):.4f} px (solo {float(solo_res):.4f}); {ms:.4f} ms a solve, "
+          f"solo {solo_ms:.4f} ms", flush=True)
+    return {"err_px": err, "ms": ms, "solo_ms": solo_ms}
+
+
+def run_dryrun(dev) -> dict:
+    """`dryrun_multichip(N_TILES)` at full size: the tiny flagship over a
+    (2, 2) mesh at 1080p, the distributed solve, the `vs + adb + cas` chain
+    over a 1 x 4 tile mesh at 4K and the 4K EASU halo remap (four K1
+    launches).  The chain's output is held bit-equal against the same chain
+    stepped without a mesh, and the remap within 1e-5 against K1's solo
+    launch."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
+    from livevisionkit_tpu_torch.parallel import dryrun
+    from livevisionkit_tpu_torch.parallel.streams import MultiStreamFilter
+
+    devices = mesh_devices(dev, N_TILES)
+    _reset_launches()
+    t0 = time.perf_counter()
+    rep = dryrun.dryrun_multichip(N_TILES, devices, size=(H, W), uhd=UHD)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _launches()
+    one_card = len(set(devices)) == 1
+    # One tick each of the flagship mesh (its rows share the card: one
+    # group) and the chain, and K1 once per tile of the halo remap.
+    want = (_want(warp=N_TILES, warp_batched=2, lk_track=2) if one_card
+            else _want(warp=N_TILES, warp_batched=3, lk_track=3))
+    assert launches == want, f"dryrun: launches {launches}, want {want}"
+    ref = MultiStreamFilter(rep["chain"], 1)
+    ref_state = ref.init(lvk.FrameSpec(UHD[0], UHD[1], 1, lvk.PixelFormat.GRAY), device=dev, seed=0)
+    _, ref_out = ref.step(ref_state, rep["chain_frames"])
+    out = rep["chain_out"]
+    assert torch.equal(out.pixels, ref_out.pixels) and torch.equal(out.valid, ref_out.valid), (
+        "dryrun: the meshed 4K chain differs from the unmeshed one")
+    img, smap, _ = rep["remap_in"]
+    solo = warp_kernel.warp(img.contiguous(), smap.contiguous(), fill=0.0, fmt=lvk.PixelFormat.GRAY)
+    err = float((rep["remap_out"] - solo).abs().max())
+    assert err <= 1e-5, f"dryrun: 4K halo remap differs from solo K1 by {err}"
+    print(f"dryrun_multichip({N_TILES}) on {sorted({str(d) for d in devices})}: {wall_s:.2f} s, "
+          f"launches {launches}; 4K chain bit-equal to the unmeshed chain; halo remap vs solo K1 "
+          f"{err:.3e}", flush=True)
+    return {"launches": launches, "wall_s": wall_s, "remap_err": err}
+
+
+def run_multiproc() -> dict:
+    """tools/run_multiproc_torch.py on the card: two processes joined
+    through torch.distributed (gloo, a file rendezvous), each stepping its
+    own streams of a (4, 2) mesh, bit-equal to one process."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(root, "tools", "run_multiproc_torch.py"),
+                           "--device", "cuda"], capture_output=True, text=True, timeout=600, cwd=root)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0 or "MULTIPROC OK" not in proc.stdout:
+        raise RuntimeError(f"run_multiproc_torch.py exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                           f"\n{proc.stderr[-3000:]}")
+    print(f"multiproc: {proc.stdout.strip().splitlines()[-1]} ({wall_s:.1f} s)", flush=True)
+    return {"wall_s": wall_s}
+
+
+def run_multidevice_slice(dev) -> dict:
+    """The multi-device slice's five phases, on a generator of their own."""
+    rng = np.random.default_rng(3)
+    n_cards = torch.cuda.device_count()
+    print(f"multi-device meshes: {n_cards} card(s); "
+          + ("distinct cards" if n_cards >= N_TILES else f"{dev} repeated {N_TILES} times"),
+          flush=True)
+    return {"tiled": check_warp_tiled(dev, rng), "clip": run_sharded_clip(dev, rng),
+            "solve": run_distributed_solve(dev, rng), "dryrun": run_dryrun(dev),
+            "multiproc": run_multiproc()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
@@ -2294,6 +2602,7 @@ def main() -> int:
     dbg = run_debug(dev, rng_e, clips)
     rt = run_runtime_slice(dev, clips[0], args.profile)
     del clips
+    md = run_multidevice_slice(dev)
 
     def entry(name, source, replaces, launches, rep, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"livevisionkit_tpu_torch/csrc/{source}",
@@ -2340,6 +2649,9 @@ def main() -> int:
         entry("rcas", "rcas.cu", "rcas.py:108",
               launched("rcas", *paths) + ch["scaler_launches"]["rcas"], rcas_rep),
         entry("rcas_x8", "rcas.cu", "rcas.py:108", launched("rcas_batched", *paths), rcas_b_rep),
+        # K1 once per tile of remap_sharded: the dry run's 4K halo remap.
+        entry("warp_tiled", "warp.cu", "warp.py:312", md["dryrun"]["launches"]["warp"],
+              md["tiled"]["easu"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{gpu} | slice {sl['gpu_ms']:.4f} ms/frame (device), {sl['wall_ms']:.4f} ms/frame (host)"
@@ -2359,7 +2671,14 @@ def main() -> int:
           f" | lvk stream (lc+vs+adb) {rt['stream']['fps']:.2f} frames/s, p50/p95/p99 "
           f"{rt['stream']['p50_ms']:.2f}/{rt['stream']['p95_ms']:.2f}/{rt['stream']['p99_ms']:.2f} ms"
           f" | lc K1 easu {rt['lc']['easu']['ms']:.4f}, bilinear {rt['lc']['bilinear']['ms']:.4f} ms"
-          f" | process_clip {rt['clip']['gpu_ms']:.4f} / {rt['clip']['wall_ms']:.4f} ms/frame",
+          f" | process_clip {rt['clip']['gpu_ms']:.4f} / {rt['clip']['wall_ms']:.4f} ms/frame"
+          f" | K1 per tile x{N_TILES} 4K {md['tiled']['easu']['ms']:.4f} ms (solo "
+          f"{md['tiled']['easu']['solo_ms']:.4f})"
+          f" | process_clip_sharded x{CLIP_CHUNKS} {md['clip']['gpu_ms']:.4f} / "
+          f"{md['clip']['wall_ms']:.4f} ms/frame (serial {md['clip']['serial_gpu_ms']:.4f} / "
+          f"{md['clip']['serial_wall_ms']:.4f})"
+          f" | estimate_sharded {md['solve']['ms']:.4f} ms (solo {md['solve']['solo_ms']:.4f})"
+          f" | dryrun {md['dryrun']['wall_s']:.2f} s | multiproc {md['multiproc']['wall_s']:.1f} s",
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -54,11 +54,13 @@ def _launch(imgs, out, n_streams, src_ss, c, out_size, plan, fmt) -> None:
     rgb_luma = fmt not in (PixelFormat.YUV, PixelFormat.GRAY)
     if rgb_luma and c < 3:
         raise ValueError(f"EASU luma of {fmt} needs 3 channels, got {c}")
-    status = build.library().lvk_easu_scale_batched(
-        imgs.data_ptr(), out.data_ptr(), n_streams, src_ss, c, h, w, oh, ow,
-        int(plan.rational), plan.py, plan.qy, plan.px, plan.qx, h / oh, w / ow, int(rgb_luma),
-        torch.cuda.current_stream(imgs.device).cuda_stream,
-    )
+    # On the tensors' card, which need not be the current one (a mesh).
+    with torch.cuda.device(imgs.device):
+        status = build.library().lvk_easu_scale_batched(
+            imgs.data_ptr(), out.data_ptr(), n_streams, src_ss, c, h, w, oh, ow,
+            int(plan.rational), plan.py, plan.qy, plan.px, plan.qx, h / oh, w / ow, int(rgb_luma),
+            torch.cuda.current_stream(imgs.device).cuda_stream,
+        )
     build.check(status, "easu_scale")
 
 

@@ -130,6 +130,9 @@ def launch(lib, prev_levels, next_levels, pts, init_flow, flow, good, window_siz
     if not hasattr(lib, "lvk_lk_track_counted"):
         if restaged is not None:
             raise ValueError("this LK build does not count restaged features")
-        return lib.lvk_lk_track(*args, stream)
+        with torch.cuda.device(pts.device):
+            return lib.lvk_lk_track(*args, stream)
     counter = None if restaged is None else restaged.data_ptr()
-    return lib.lvk_lk_track_counted(*args, counter, stream)
+    # On the tensors' card, which need not be the current one (a mesh).
+    with torch.cuda.device(pts.device):
+        return lib.lvk_lk_track_counted(*args, counter, stream)

@@ -42,10 +42,12 @@ def _launch(imgs, out, n_streams, src_ss, c, sharpness) -> None:
     if not 1 <= c <= _MAX_CHANNELS:
         raise ValueError(f"rcas kernel takes 1..{_MAX_CHANNELS} channels, got {c}")
     h, w = imgs.shape[-2:]
-    status = build.library().lvk_rcas_batched(
-        imgs.data_ptr(), out.data_ptr(), n_streams, src_ss, c, h, w, float(sharpness),
-        torch.cuda.current_stream(imgs.device).cuda_stream,
-    )
+    # On the tensors' card, which need not be the current one (a mesh).
+    with torch.cuda.device(imgs.device):
+        status = build.library().lvk_rcas_batched(
+            imgs.data_ptr(), out.data_ptr(), n_streams, src_ss, c, h, w, float(sharpness),
+            torch.cuda.current_stream(imgs.device).cuda_stream,
+        )
     build.check(status, "rcas")
 
 

@@ -61,13 +61,15 @@ def _launch(imgs, smaps, out, n_streams, img_ss, map_ss, c, fill, filter_mode, f
         raise ValueError(f"EASU luma of {fmt} needs 3 channels, got {c}")
     h, w = imgs.shape[-2:]
     oh, ow = smaps.shape[-2:]
-    status = build.library().lvk_warp_counted(
-        imgs.data_ptr(), smaps.data_ptr(), out.data_ptr(), n_streams, img_ss, map_ss,
-        c, h, w, oh, ow, int(imgs.dtype == torch.uint8), int(filter_mode == "easu"),
-        int(fill is not None), 0.0 if fill is None else float(fill), int(rgb_luma),
-        None if block_paths is None else block_paths.data_ptr(),
-        torch.cuda.current_stream(imgs.device).cuda_stream,
-    )
+    # On the tensors' card, which need not be the current one (a mesh).
+    with torch.cuda.device(imgs.device):
+        status = build.library().lvk_warp_counted(
+            imgs.data_ptr(), smaps.data_ptr(), out.data_ptr(), n_streams, img_ss, map_ss,
+            c, h, w, oh, ow, int(imgs.dtype == torch.uint8), int(filter_mode == "easu"),
+            int(fill is not None), 0.0 if fill is None else float(fill), int(rgb_luma),
+            None if block_paths is None else block_paths.data_ptr(),
+            torch.cuda.current_stream(imgs.device).cuda_stream,
+        )
     build.check(status, "warp")
 
 

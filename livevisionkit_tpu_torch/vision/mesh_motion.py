@@ -24,7 +24,9 @@ never waits for the device, and it batches under `torch.func.vmap` (every
 op here has a batching rule).  On the card `index_add` sums in no fixed
 order, so a card solve agrees with the CPU's within rounding, not bit for
 bit.  The mesh is solved in detection-frame pixels and returned
-normalized.
+normalized.  `solve` is the same fit over features split into shards on
+several devices (parallel/distributed_solve.py); `estimate` is its one
+shard.
 """
 
 from __future__ import annotations
@@ -103,13 +105,43 @@ def estimate(
     The CG warm-starts from the temporal target when it carries weight,
     else from the global fit.
     """
+    field, inliers, mean_res = solve([(src, dst, weights)], global_fit, size, settings,
+                                     prev_local, prev_weight_scale)
+    return field, inliers[0], mean_res
+
+
+def _psum(parts: list[torch.Tensor], dev: torch.device) -> torch.Tensor:
+    """The sum of per-shard partials, gathered on `dev` (one partial: itself)."""
+    total = parts[0].to(dev)
+    for p in parts[1:]:
+        total = total + p.to(dev)
+    return total
+
+
+def solve(
+    shards: list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+    global_fit: WarpField,
+    size: tuple[int, int],
+    settings: MeshMotionSettings,
+    prev_local: WarpField | None = None,
+    prev_weight_scale: torch.Tensor | float = 1.0,
+) -> tuple[WarpField, torch.Tensor, list[torch.Tensor]]:
+    """`estimate` over features split into shards, (src, dst, weights) each
+    on its own device: every feature sum (the operator's A^T W A x, the
+    right-hand side, the temporal diagonal, the residual mean) is a sum of
+    per-shard partials gathered on the device of `global_fit`, where the CG
+    runs.  Returns the field, each shard's inliers on its device, and the
+    mean residual."""
     hm, wm = global_fit.field_shape
     nodes = hm * wm
     dev = global_fit.offsets.device
 
-    idx, w4 = _bilinear_weights(dst, (hm, wm), size)
-    # Observed backward displacement (dy, dx) in px.
-    d_obs = torch.stack([src[:, 1] - dst[:, 1], src[:, 0] - dst[:, 0]], dim=-1)
+    feats = []
+    for src, dst, weights in shards:
+        idx, w4 = _bilinear_weights(dst, (hm, wm), size)
+        # Observed backward displacement (dy, dx) in px.
+        d_obs = torch.stack([src[:, 1] - dst[:, 1], src[:, 0] - dst[:, 0]], dim=-1)
+        feats.append((idx, w4, d_obs, weights))
 
     x_glob = _to_px(global_fit.offsets, size)  # solve in px units
     lam_g = settings.global_weight
@@ -125,30 +157,33 @@ def estimate(
         x_tgt = x_glob + _to_px(prev_local.offsets, size)
         x0 = torch.where(lam_t > 0, x_tgt, x_glob)
 
-    def temporal_diag(wf):
+    def temporal_diag(wfs):
         """Per-node temporal weight lam_t / (1 + (s / s0)^2), s the node's
         feature support (the diagonal of the feature normal matrix)."""
-        s = torch.zeros(nodes, dtype=torch.float32, device=dev).index_add(
-            0, idx.reshape(-1), (wf[:, None] * w4 * w4).reshape(-1)).reshape(1, hm, wm)
+        s = _psum([torch.zeros(nodes, dtype=torch.float32, device=idx.device).index_add(
+            0, idx.reshape(-1), (wf[:, None] * w4 * w4).reshape(-1))
+            for (idx, w4, _, _), wf in zip(feats, wfs)], dev).reshape(1, hm, wm)
         return lam_t / (1.0 + (s / settings.temporal_support_scale) ** 2)
 
-    def normal_op(x, wf, lam_tn):
+    def normal_op(x, wfs, lam_tn):
         """A^T W A x of the stacked system (feature, rigidity, temporal,
         global)."""
-        feat = _scatter(_sample(x, idx, w4) * wf[:, None], idx, w4, nodes).reshape(2, hm, wm)
+        feat = _psum([_scatter(_sample(x.to(idx.device), idx, w4) * wf[:, None], idx, w4, nodes)
+                      for (idx, w4, _, _), wf in zip(feats, wfs)], dev).reshape(2, hm, wm)
         rig = lam_r * (_diff_h_t(_diff_h(x)) + _diff_v_t(_diff_v(x)))
         return feat + rig + lam_tn * x + lam_g * x
 
-    def rhs(wf, lam_tn):
-        feat = _scatter(d_obs * wf[:, None], idx, w4, nodes).reshape(2, hm, wm)
+    def rhs(wfs, lam_tn):
+        feat = _psum([_scatter(d_obs * wf[:, None], idx, w4, nodes)
+                      for (idx, w4, d_obs, _), wf in zip(feats, wfs)], dev).reshape(2, hm, wm)
         return feat + lam_tn * x_tgt + lam_g * x_glob
 
-    def cg_solve(b, wf, lam_tn, x):
-        r = b - normal_op(x, wf, lam_tn)
+    def cg_solve(b, wfs, lam_tn, x):
+        r = b - normal_op(x, wfs, lam_tn)
         p = r
         rs = (r * r).sum()
         for _ in range(settings.cg_iterations):
-            ap = normal_op(p, wf, lam_tn)
+            ap = normal_op(p, wfs, lam_tn)
             alpha = rs / torch.clamp((p * ap).sum(), min=1e-12)
             x = x + alpha * p
             r = r - alpha * ap
@@ -157,18 +192,28 @@ def estimate(
             rs = rs_new
         return x
 
+    def err2(x):
+        """Each shard's squared residuals, (N_i,) on its device."""
+        out = []
+        for idx, w4, d_obs, _ in feats:
+            res = _sample(x.to(idx.device), idx, w4) - d_obs  # (N, 2)
+            out.append((res * res).sum(dim=-1))
+        return out
+
     tau2 = settings.inlier_threshold_px ** 2
     x = x0
-    wf = weights
+    wfs = [weights for _, _, _, weights in feats]
     for _ in range(settings.irls_rounds):
-        lam_tn = temporal_diag(wf)
-        x = cg_solve(rhs(wf, lam_tn), wf, lam_tn, x)
-        res = _sample(x, idx, w4) - d_obs  # (N, 2)
-        wf = weights * torch.clamp(1.0 - (res * res).sum(dim=-1) / tau2, min=0.0)
+        lam_tn = temporal_diag(wfs)
+        x = cg_solve(rhs(wfs, lam_tn), wfs, lam_tn, x)
+        wfs = [weights * torch.clamp(1.0 - e2 / tau2, min=0.0)
+               for (_, _, _, weights), e2 in zip(feats, err2(x))]
 
-    res = _sample(x, idx, w4) - d_obs
-    err2 = (res * res).sum(dim=-1)
-    matched = weights > 0
-    inliers = (err2 < tau2) & matched
-    mean_res = (torch.sqrt(err2) * matched).sum() / torch.clamp(matched.sum(), min=1)
+    inliers, res_sum, n_matched = [], [], []
+    for (_, _, _, weights), e2 in zip(feats, err2(x)):
+        matched = weights > 0
+        inliers.append((e2 < tau2) & matched)
+        res_sum.append((torch.sqrt(e2) * matched).sum())
+        n_matched.append(matched.sum())
+    mean_res = _psum(res_sum, dev) / torch.clamp(_psum(n_matched, dev), min=1)
     return WarpField(offsets=_to_norm(x, size)), inliers, mean_res

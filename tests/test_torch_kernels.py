@@ -25,6 +25,8 @@ from livevisionkit_tpu_torch.ops.cuda_kernels import easu_scale as easu_scale_ke
 from livevisionkit_tpu_torch.ops.cuda_kernels import lk as lk_kernel
 from livevisionkit_tpu_torch.ops.cuda_kernels import rcas as rcas_kernel
 from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
+from livevisionkit_tpu_torch.parallel import spatial
+from livevisionkit_tpu_torch.parallel.streams import Mesh
 from livevisionkit_tpu_torch.types import PixelFormat
 from livevisionkit_tpu_torch.vision import features, optical_flow
 
@@ -736,3 +738,76 @@ def test_warp_kernel_on_undistort_map(cuda, size, dtype, nc, mode):
         assert warp_kernel.warp.launches == before + 1
         step_px = torch.cat([res.pixels, res.alpha[None]]) if alpha else res.pixels
         assert torch.equal(step_px, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["easu", "bilinear"])
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_warp_tiled_matches_solo(cuda, mode, dtype):
+    """`remap_sharded` over four tiles of one card launches K1 once a tile
+    on a halo-padded source wider than its output, and matches K1's solo
+    launch on the whole frame (f32 within 1e-5, u8 within 1 LSB) and the
+    same tiles on the CPU (the plain version) alike."""
+    size = (120, 320)
+    img = _image(cuda, size)
+    if dtype == "uint8":
+        img = torch.clamp(img * 255.0 + 0.5, 0, 255).to(torch.uint8)
+    smap = _similarity(1.001, 0.002, 5.0, -3.0, cuda).sample_map(size).contiguous()
+    kw = dict(fill=0.0, halo=48, filter_mode=mode)
+    before = warp_kernel.warp.launches
+    got = spatial.remap_sharded(img, smap, Mesh([cuda] * 4, ("tile",)), **kw)
+    assert warp_kernel.warp.launches - before == 4
+    assert got.device == cuda and got.shape == img.shape and got.dtype == img.dtype
+    solo = warp_kernel.warp(img, smap, fill=0.0, filter_mode=mode)
+    plain = spatial.remap_sharded(img.cpu(), smap.cpu(), Mesh(["cpu"] * 4, ("tile",)), **kw)
+    for want in (solo.cpu(), plain):
+        if dtype == "uint8":
+            assert int((got.cpu().int() - want.int()).abs().max()) <= 1
+        else:
+            torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_warp_tiled_rejects_uneven_tiles(cuda):
+    img = _image(cuda, (120, 320))
+    smap = _similarity(1.0, 0.0, 0.0, 0.0, cuda).sample_map((120, 320)).contiguous()
+    with pytest.raises(ValueError, match="must divide"):
+        spatial.remap_sharded(img, smap, Mesh([cuda] * 3, ("tile",)))
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_their_tensors_card(cuda):
+    """With cuda:0 current, each kernel given tensors on cuda:1 (a tile or a
+    stream group of a multi-card mesh) runs on cuda:1 and gives, bit for
+    bit, what it gives on cuda:0; `remap_sharded` over tiles alternating
+    between the two cards is solo K1's warp."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", 1)
+    assert torch.cuda.current_device() == 0
+
+    def same(fn, *args):
+        here = fn(*args)
+        there = fn(*[a.to(other) for a in args])
+        torch.cuda.synchronize(other)
+        for a, b in zip(here if isinstance(here, tuple) else (here,),
+                        there if isinstance(there, tuple) else (there,)):
+            assert b.device == other and torch.equal(a, b.to(cuda))
+
+    img = _image(cuda)
+    smap = _similarity(1.03, 0.03, 3.2, -2.7, cuda).sample_map(img.shape[-2:]).contiguous()
+    same(lambda i, m: warp_kernel.warp(i, m, fill=0.0), img, smap)
+    same(lambda i, m: warp_kernel.warp_batched(i, m), img[None], smap[None])
+    same(lambda i: rcas_kernel.rcas(i, 0.8), img)
+    same(lambda i: easu_scale_kernel.easu_scale(i, (240, 320), easu_ops.scale_plan((120, 160), (240, 320))),
+         img)
+    p0 = optical_flow.Pyramid.build(img[0].contiguous(), 3)
+    p1 = optical_flow.Pyramid.build(img[0].roll(2, dims=1).contiguous(), 3)
+    pts = torch.tensor([[40.0, 50.0], [80.0, 60.0], [120.0, 90.0]], device=cuda)
+    s = OpticalFlowSettings()
+    same(lambda pts, *lv: lk_kernel.lk_track(lv[:3], lv[3:], pts, torch.zeros_like(pts), s.window_size,
+                                             s.iterations, s.min_eigen_threshold),
+         pts, *p0.levels, *p1.levels)
+    got = spatial.remap_sharded(img, smap, Mesh([cuda, other, cuda, other], ("tile",)), halo=16,
+                                filter_mode="easu")
+    assert got.device == cuda and torch.equal(got, warp_kernel.warp(img, smap, fill=0.0))
