@@ -43,11 +43,24 @@ tile, against solo K1 and each tile against plain), `process_clip_sharded`
 of 192 1080p frames in four chunks against `process_clip`, the
 feature-sharded mesh solve against the solo one, `dryrun_multichip(4)` at
 1080p and 4K, and two processes of tools/run_multiproc_torch.py.
+Each path's step is also driven compiled, as a CUDA graph captured once
+and replayed a frame (utils/compiled.jit_step, the JAX package's
+`jax.jit(step, donate_argnums=0)`): the solo, 8-stream, chain, chain
+tick, mesh, mesh tick, 4K full chain and `vs + adb + cas` tick steps and
+the `lvk-torch` chain's step (`run_graph`: in lockstep with the op-by-op
+step, every output and correction bit-equal, the kernels' launches
+counted at the capture and none after, then timed, then traced: each
+kernel of the path once a replay by its name in the profiler's trace),
+and `stream()`, `stream_multi`, `process_clip` and `process_clip_sharded`
+(their default) and the dry run, each bit-equal to its op-by-op run.  A
+step that synchronizes raises at its first call and makes no graph.
 Each drive checks that its step went through its kernels once per frame
 (or tick) and that the outputs are right.  It also times the scaler alone
 at 1080p -> 4K.  Every failure raises.  The last line is a JSON object
 with the device; the line before it gives the card's name and power limit
-and each path's ms per step, and the line before that lists each kernel's
+and each path's ms per step op by op and as a graph (device / host), the
+line before that the card's name again with each path's op-by-op ms per
+step, and the line before that lists each kernel's
 launches over every path, error and times, with its bound (the larger of
 its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, the H100
 SXM's published peaks, counted from this run's shapes and maps) and the
@@ -351,6 +364,223 @@ def _profile(step, state, frames, path: str) -> None:
     print(f"profile {os.path.basename(path)}: {len(kernels) / n:.1f} kernel launches per step, "
           f"{busy / n / 1e3:.4f} ms device busy per step, {100.0 * (1.0 - busy / span):.1f}% of "
           f"the traced span idle", flush=True)
+
+
+# ------------------------------------------------------------------------
+# The compiled step: a path's step captured as a CUDA graph and replayed
+# (utils/compiled.jit_step), against the same step op by op.
+
+GRAPH_TRACE_STEPS = 5  # replays traced by the profiler
+# Each kernel's name in a profiler trace and the launch counters it
+# answers to (K2 is K1's kernel over a stream grid, K4 K3's with one level).
+TRACE_GROUPS = {
+    "K1/K2": (r"(easu|bilinear)_warp_kernel", ("warp", "warp_batched")),
+    "K3/K4": (r"lk_kernel", ("lk_track", "lk_level")),
+    "K5": (r"easu_scale_kernel", ("easu_scale", "easu_scale_batched")),
+    "K6": (r"rcas_kernel", ("rcas", "rcas_batched")),
+}
+
+
+def _kernel_groups(launches: dict) -> dict:
+    """Counter launches summed by the kernel (trace name) they launch."""
+    return {g: sum(launches[c] for c in counters) for g, (_, counters) in TRACE_GROUPS.items()}
+
+
+def _trace_events(prof) -> tuple[list[tuple[float, float, str]], list[float]]:
+    """(start, end, name) in us of every device kernel of a profiler run,
+    in order of start, and the host duration in us of each
+    `cudaGraphLaunch` (its chrome trace, written to a temporary file)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e.get("name", "")) for e in events
+                     if e.get("cat") == "kernel")
+    launches = [e["dur"] for e in events if e.get("name") == "cudaGraphLaunch" and "dur" in e]
+    return kernels, launches
+
+
+def _traced_groups(events) -> dict:
+    """Kernels of a trace counted by TRACE_GROUPS name."""
+    import re
+
+    pats = {g: re.compile(rf"(?<![A-Za-z0-9_]){pat}(?![A-Za-z0-9_])")
+            for g, (pat, _) in TRACE_GROUPS.items()}
+    return {g: sum(1 for _, _, name in events if pat.search(name)) for g, pat in pats.items()}
+
+
+def _bit_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """0-d count, on the card, of the elements whose bits differ."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return (a != b).sum()
+
+
+def _diff_stats(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(elements whose bits differ, max |a - b|, mean |a - b|), on the card."""
+    d = (a.to(torch.float64) - b.to(torch.float64)).abs()
+    return torch.stack([_bit_diff(a, b).to(torch.float64), d.max(), d.mean()])
+
+
+# Paths whose step holds `index_add` on floats (the mesh solve's
+# scatter-add, vision/mesh_motion._scatter): its atomics sum in no fixed
+# order, so two op-by-op runs differ too, and a graph is held to the mesh
+# step's parity bound instead of bit equality: corrections within 2e-3
+# normalised units (tests/test_torch_multistream.py), output pixels within
+# a mean |difference| of 0.01 a frame (the sharded clip's rule), valid flags
+# and timestamps equal.
+UNORDERED_OP = "index_add (vision/mesh_motion._scatter)"
+MESH_CORRECTION_BOUND, MESH_PIXEL_BOUND = 2e-3, 0.01
+
+
+def _mesh_mode(stabilizer) -> bool:
+    """Does the stabilizer solve a mesh (a field other than 2x2)?"""
+    return tuple(stabilizer.settings.tracker.motion_resolution) != (2, 2)
+
+
+def _reseeded(fresh, like, seed: int = 0):
+    """`fresh`'s tensors in the structure of `like`, a compiled step's
+    state, its generators reseeded with `seed`: a fresh start that keeps
+    the step's graph (a new generator object would make a new one)."""
+    import torch.utils._pytree as pytree
+
+    from livevisionkit_tpu_torch.utils import compiled
+
+    state = pytree.tree_unflatten(pytree.tree_leaves(fresh), pytree.tree_structure(like))
+    for g in compiled.generators(*pytree.tree_flatten(state)):
+        g.manual_seed(seed)
+    return state
+
+
+def run_graph(name, eager_step, graph_step, init, inputs, n, per_step, views,
+              unordered: bool = False) -> dict:
+    """A path's compiled step (`graph_step`: `jit_step(step)` or
+    `MultiStreamFilter.jit_step()`) against `eager_step` on the same n
+    inputs (`inputs(t)`, a tuple), both from `init()` (seed 0), with
+    synchronizing calls made errors throughout:
+
+      1. in lockstep: `views(state, out)` (output pixels, valid flags,
+         timestamps, the stabilizer's correction offsets) of the graph's
+         replay bit-equal to the op-by-op step's, every frame (with
+         `unordered`, a path through UNORDERED_OP: within its bounds, and
+         a second op-by-op run beside them shows how far two op-by-op
+         runs drift apart); the first call captures, and its launches (the
+         warm-up's and the capture's) are `per_step` x (WARMUP_STEPS + 1),
+         every later graph call none (a replay runs no kernel wrapper);
+      2. timed: n replays from a fresh state (same graph, generator
+         reseeded), device ms (CUDA events) and host ms a frame over the
+         last `_timed(n)`, from an idle card, no kernel wrapper called;
+      3. traced: GRAPH_TRACE_STEPS replays under torch.profiler, each
+         kernel of `per_step` in the trace `per_step` times a replay (by
+         its name), with the launches, busy ms and idle share a step and
+         the host time of a `cudaGraphLaunch`.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    from livevisionkit_tpu_torch.utils.compiled import WARMUP_STEPS
+
+    per_step = _want(**per_step)
+    eager, state = init(), init()
+    again = init() if unordered else None
+    torch.cuda.synchronize()
+    stats, drift, compared = [], [], 0
+    _reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(n):
+            args = inputs(t)
+            eager, want = eager_step(eager, *args)
+            if unordered:
+                again, other = eager_step(again, *args)
+                drift.append(torch.stack([_diff_stats(a, b) for a, b in
+                                          zip(views(again, other), views(eager, want))]))
+            if t == 0:
+                _reset_launches()
+            state, out = graph_step(state, *args)
+            if t == 0:
+                capture = _launches()
+                _reset_launches()
+            pairs = list(zip(views(state, out), views(eager, want)))
+            stats.append(torch.stack([_diff_stats(a, b) for a, b in pairs]))
+            compared += sum(a.numel() for a, _ in pairs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = _launches()
+    stats = torch.stack(stats).cpu()  # (n, views, 3)
+    differ = stats[:, :, 0].sum(dim=0).long().tolist()
+    if unordered:
+        drift = torch.stack(drift).cpu()
+        worst = (float(stats[:, 3, 1].max()), float(stats[:, 0, 2].max()))
+        worst_eager = (float(drift[:, 3, 1].max()), float(drift[:, 0, 2].max()))
+        assert differ[1] == differ[2] == 0, f"{name} graph: valid flags or timestamps differ: {differ}"
+        assert worst[0] <= MESH_CORRECTION_BOUND and worst[1] <= MESH_PIXEL_BOUND, (
+            f"{name} graph: corrections up to {worst[0]:.3e} apart, pixels {worst[1]:.3e} a frame")
+        equal = (f"within the bounds of {UNORDERED_OP}: corrections up to {worst[0]:.3e} "
+                 f"(bound {MESH_CORRECTION_BOUND}), output pixels up to {worst[1]:.3e} mean "
+                 f"|diff| a frame (bound {MESH_PIXEL_BOUND}), {differ[0]} pixels and {differ[3]} "
+                 f"offsets not bit-equal, valid flags and timestamps equal; two op-by-op runs "
+                 f"{worst_eager[0]:.3e} / {worst_eager[1]:.3e} apart")
+    else:
+        assert not any(differ), f"{name} graph: elements differing from op by op per view: {differ}"
+        equal = "bit-equal to op by op"
+    want_capture = {k: v * (WARMUP_STEPS + 1) for k, v in per_step.items()}
+    assert capture == want_capture, f"{name} graph: launches at capture {capture}, want {want_capture}"
+    want_after = {k: v * (n - 1) * (2 if unordered else 1) for k, v in per_step.items()}
+    assert after == want_after, (
+        f"{name} graph: launches after the capture {after}, want the op-by-op steps' {want_after}")
+    del eager, want, again
+
+    state = _reseeded(init(), state)
+    torch.cuda.synchronize()
+    timed = _timed(n)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    _reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(n):
+            if t == n - timed:
+                # A replay returns before the card has run it: without this
+                # wait the card's backlog would count in the host's window.
+                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                start.record()
+                wall0 = time.perf_counter()
+            state, out = graph_step(state, *inputs(t))
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - wall0) * 1e3 / timed
+    gpu_ms = start.elapsed_time(end) / timed
+    replayed = _launches()
+    assert replayed == _want(), f"{name} graph: kernel wrappers called in replays: {replayed}"
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(GRAPH_TRACE_STEPS):
+            state, out = graph_step(state, *inputs(t))
+        torch.cuda.synchronize()
+    events, launch_us = _trace_events(prof)
+    traced = _traced_groups(events)
+    want_traced = {g: v * GRAPH_TRACE_STEPS for g, v in _kernel_groups(per_step).items()}
+    assert traced == want_traced, f"{name} graph: kernels in the replays' trace {traced}, want {want_traced}"
+    busy = _busy_us([(a, b) for a, b, _ in events])
+    span = max(b for _, b, _ in events) - events[0][0]
+    rep = {"gpu_ms": gpu_ms, "wall_ms": wall_ms, "capture": capture, "traced": traced,
+           "kernels_per_step": len(events) / GRAPH_TRACE_STEPS,
+           "busy_ms": busy / GRAPH_TRACE_STEPS / 1e3, "idle": 1.0 - busy / span,
+           "launch_ms": statistics.mean(launch_us) / 1e3 if launch_us else float("nan")}
+    print(f"{name} graph: {n} frames replayed {equal} ({compared} elements of outputs and "
+          f"corrections), launches at capture {capture}; {gpu_ms:.4f} ms/frame on the device, "
+          f"{wall_ms:.4f} ms/frame host wall clock (last {timed}); a replay's trace: "
+          f"{rep['kernels_per_step']:.1f} kernels, {rep['busy_ms']:.4f} ms busy, "
+          f"{100.0 * rep['idle']:.1f}% of the traced span idle, cudaGraphLaunch "
+          f"{rep['launch_ms']:.4f} ms on the host, {traced} over {GRAPH_TRACE_STEPS} replays",
+          flush=True)
+    return rep
 
 
 def check_warp(dev, rng) -> dict:
@@ -865,12 +1095,14 @@ def _drive(filt, state, frames, per_frame, n=None):
     return state, start.elapsed_time(end) / timed, wall_ms
 
 
-def run_solo(name, filt, dev, rng, profile_dir: str | None) -> dict:
+def run_solo(name, filt, dev, rng, profile_dir: str | None, graph: bool = True) -> dict:
     """60 1080p frames of a fresh shaky clip through the stabilizer `filt`
     on the card: one warp (K1) and one LK launch (K3) a step, valid flags
     from frame `filt.delay`, finite outputs, tracker ok on >= 90% of frames
-    and output jitter below input jitter."""
+    and output jitter below input jitter.  With `graph`, then the step
+    compiled (`run_graph`)."""
     import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.utils.compiled import jit_step
 
     poses, frames = _shaky_clip(dev, rng)
     n = len(frames)
@@ -917,15 +1149,22 @@ def run_solo(name, filt, dev, rng, profile_dir: str | None) -> dict:
           f"frames), {wall_ms:.4f} ms/frame host wall clock", flush=True)
     if profile_dir:
         _profile(filt.step, state, frames, os.path.join(profile_dir, name))
-    return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms,
-            "jitter_in": j_in, "jitter_out": j_out, "state": state, "frames": frames}
+    rep = {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms,
+           "jitter_in": j_in, "jitter_out": j_out, "state": state, "frames": frames}
+    if graph:
+        rep["graph"] = run_graph(
+            name, filt.step, jit_step(filt.step), lambda: filt.init(spec, device=dev),
+            lambda t: (frames[t],), n, {"warp": 1, "lk_track": 1},
+            lambda st, out: [out.pixels, out.valid, out.timestamp, st.correction.offsets],
+            unordered=_mesh_mode(filt))
+    return rep
 
 
-def run_slice(dev, rng, profile_dir: str | None) -> dict:
+def run_slice(dev, rng, profile_dir: str | None, graph: bool = True) -> dict:
     """The flagship stabilizer (homography mode, a 2x2 field)."""
     import livevisionkit_tpu_torch as lvk
 
-    rep = run_solo("slice", lvk.flagship_filter(), dev, rng, profile_dir)
+    rep = run_solo("slice", lvk.flagship_filter(), dev, rng, profile_dir, graph)
     del rep["state"], rep["frames"]
     return rep
 
@@ -1007,7 +1246,8 @@ def _jitter(poses, corrections, delay: int, size=(H, W)) -> tuple[float, float]:
     return metrics.jitter(np.array(x_in)), metrics.jitter(np.array(y_out))
 
 
-def run_streams(name, filt, dev, poses, clips, n, want, profile_dir: str | None) -> dict:
+def run_streams(name, filt, dev, poses, clips, n, want, profile_dir: str | None,
+                graph: bool = True) -> dict:
     """STREAMS 1080p streams, each its own shaky clip (u8 on the card),
     through `MultiStreamFilter(filt, STREAMS).step` for n ticks with
     synchronizing calls made errors: `want(n)` launches of each kernel
@@ -1015,7 +1255,8 @@ def run_streams(name, filt, dev, poses, clips, n, want, profile_dir: str | None)
     fallback.  Per stream: valid flags from tick `filt.delay`, finite
     outputs of the filter's output size, tracker ok on >= 90% of ticks and
     output jitter below input jitter.  `filt` is a stabilizer, or a chain
-    whose first stage is one."""
+    whose first stage is one.  With `graph`, then `multi.jit_step()`
+    (`run_graph`)."""
     import livevisionkit_tpu_torch as lvk
     from livevisionkit_tpu_torch.parallel.streams import MultiStreamFilter
 
@@ -1025,6 +1266,7 @@ def run_streams(name, filt, dev, poses, clips, n, want, profile_dir: str | None)
     out_spec = filt.output_spec(spec)
     live = torch.ones(STREAMS, dtype=torch.bool, device=dev)
     stab = (lambda st: st[0]) if isinstance(filt, lvk.CompositeFilter) else (lambda st: st)
+    stab_filter = filt.filters[0] if isinstance(filt, lvk.CompositeFilter) else filt
 
     def frame(t):
         return lvk.Frame(pixels=clips[:, t].to(torch.float32) * (1.0 / 255.0),
@@ -1078,17 +1320,25 @@ def run_streams(name, filt, dev, poses, clips, n, want, profile_dir: str | None)
           f"stream-frame; {1e3 * STREAMS / tick_ms:.1f} frames/s aggregate", flush=True)
     if profile_dir:
         _profile(multi.step, state, [frame(t) for t in range(5)], os.path.join(profile_dir, name))
-    return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms, "jitter": jitter}
+    rep = {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms, "jitter": jitter}
+    if graph:
+        del state
+        rep["graph"] = run_graph(
+            name, multi.step, multi.jit_step(), lambda: multi.init(spec, device=dev),
+            lambda t: (frame(t),), n, {k: v // n for k, v in want.items()},
+            lambda st, out: [out.pixels, out.valid, out.timestamp, stab(st).correction.offsets],
+            unordered=_mesh_mode(stab_filter))
+    return rep
 
 
-def run_multistream(dev, poses, clips, profile_dir: str | None) -> dict:
+def run_multistream(dev, poses, clips, profile_dir: str | None, graph: bool = True) -> dict:
     """STREAMS flagship streams for N_FRAMES ticks: one batched warp (K2)
     and one LK launch (K3) a tick."""
     import livevisionkit_tpu_torch as lvk
 
     n = N_FRAMES
     return run_streams("multistream", lvk.flagship_filter(), dev, poses, clips, n,
-                       _want(warp_batched=n, lk_track=n), profile_dir)
+                       _want(warp_batched=n, lk_track=n), profile_dir, graph)
 
 
 def run_chain_multistream(dev, poses, clips, profile_dir: str | None) -> dict:
@@ -1121,48 +1371,81 @@ def run_mesh_multistream(dev, poses, clips, profile_dir: str | None) -> dict:
 def run_stream_multi(dev, clips) -> dict:
     """`stream_multi` end to end: STREAMS in-memory readers of host u8 BGR
     1080p frames (DRIVER_FRAMES each, from the clips) through the flagship
-    filter on the card; every frame comes out, in order, with no stall."""
+    filter on the card, op by op (`jit=False`) and as one CUDA graph a tick
+    (the default); in each, every frame comes out, in order, with no
+    stall, op by op one K2 and one K3 launch a tick, the graph's at its
+    capture only; timed, then run again in both modes with every output
+    digested (BLAKE2b of its bytes, in each stream's writer thread): the
+    graph's bit-equal to op by op's."""
+    import hashlib
+
     import livevisionkit_tpu_torch as lvk
     from livevisionkit_tpu_torch.runtime.multistream import stream_multi
+    from livevisionkit_tpu_torch.utils.compiled import WARMUP_STEPS
 
     readers = [_bgr_reader_frames(clips[s, :DRIVER_FRAMES]) for s in range(STREAMS)]
-    got = [[] for _ in range(STREAMS)]
-    bad = []
-
-    def on_output(i, px, ts):  # each stream's writer thread appends to its own list
-        if len(got[i]) % 10 == 0 and not (np.isfinite(px).all() and px.shape == (3, H, W)):
-            bad.append((i, ts))
-        got[i].append(ts)
-
-    _reset_launches()
-    t0 = time.perf_counter()
-    stats = stream_multi(lvk.flagship_filter(), [iter(f) for f in readers], on_output=on_output,
-                         device=dev)
-    wall = time.perf_counter() - t0
-    launches = _launches()
     total = STREAMS * DRIVER_FRAMES
-    assert stats.frames_in == total and stats.frames_out == total, (
-        f"frames in {stats.frames_in}, out {stats.frames_out}, want {total} each")
-    assert stats.stalls == 0, f"{stats.stalls} stall bubbles"
-    want = _want(warp_batched=stats.batches, lk_track=stats.batches)
-    assert launches == want, f"kernel launches {launches}, want {want}"
-    assert not bad, f"bad output frames {bad}"
     times = [float(np.float32(t / 30.0)) for t in range(DRIVER_FRAMES)]
-    for i in range(STREAMS):
-        assert got[i] == times, f"stream {i} timestamps {got[i]}"
-    fps = total / wall
-    print(f"stream_multi: {STREAMS} readers x {DRIVER_FRAMES} u8 BGR 1080p frames, {stats.batches} "
-          f"batches, frames in {stats.frames_in} == out {stats.frames_out}, {stats.stalls} stalls, "
-          f"per-stream order kept; {fps:.1f} frames/s aggregate over the whole run ({wall:.3f} s), "
-          f"{stats.fps_aggregate:.1f} frames/s by the batch stopwatch", flush=True)
-    return {"batches": stats.batches, "fps": fps, "fps_batches": stats.fps_aggregate}
+
+    def run(jit: bool, digest: bool) -> dict:
+        got = [[] for _ in range(STREAMS)]
+        bad = []
+
+        def on_output(i, px, ts):  # each stream's writer thread appends to its own list
+            if len(got[i]) % 10 == 0 and not (np.isfinite(px).all() and px.shape == (3, H, W)):
+                bad.append((i, ts))
+            got[i].append((ts, time.perf_counter(),
+                           hashlib.blake2b(px, digest_size=16).digest() if digest else None))
+
+        _reset_launches()
+        t0 = time.perf_counter()
+        stats = stream_multi(lvk.flagship_filter(), [iter(f) for f in readers], on_output=on_output,
+                             device=dev, jit=jit)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        mode = "graph" if jit else "op by op"
+        assert stats.frames_in == total and stats.frames_out == total, (
+            f"stream_multi ({mode}): frames in {stats.frames_in}, out {stats.frames_out}, want {total} each")
+        assert stats.stalls == 0, f"stream_multi ({mode}): {stats.stalls} stall bubbles"
+        per = WARMUP_STEPS + 1 if jit else stats.batches
+        want = _want(warp_batched=per, lk_track=per)
+        assert launches == want, f"stream_multi ({mode}): kernel launches {launches}, want {want}"
+        assert not bad, f"stream_multi ({mode}): bad output frames {bad}"
+        for i in range(STREAMS):
+            assert [g[0] for g in got[i]] == times, f"stream_multi ({mode}): stream {i} timestamps {got[i]}"
+        # A tick's outputs arrive together: stream 0's arrivals time the ticks.
+        rep = {"batches": stats.batches, "fps": total / wall, "fps_batches": stats.fps_aggregate,
+               "steady_ms": _steady_ms([g[1] for g in got[0]]), "launches": launches,
+               "digests": [[g[2] for g in got[i]] for i in range(STREAMS)]}
+        mode += ", outputs digested" if digest else ""
+        print(f"stream_multi, {mode}: {STREAMS} readers x {DRIVER_FRAMES} u8 BGR 1080p frames, "
+              f"{stats.batches} batches, frames in {stats.frames_in} == out {stats.frames_out}, "
+              f"{stats.stalls} stalls, per-stream order kept, launches {launches}; "
+              f"{rep['fps']:.1f} frames/s aggregate over the whole run ({wall:.3f} s), "
+              f"{stats.fps_aggregate:.1f} frames/s by the batch stopwatch, {rep['steady_ms']:.4f} "
+              f"ms/tick host wall clock from tick {STEADY_FROM} on", flush=True)
+        return rep
+
+    # Timed without digests (8 writer threads hashing 25 MB outputs would
+    # set the pace), then both again with them.
+    eager, rep = run(jit=False, digest=False), run(jit=True, digest=False)
+    a, b = run(jit=False, digest=True)["digests"], run(jit=True, digest=True)["digests"]
+    differ = [(i, t) for i in range(STREAMS) for t, (x, y) in enumerate(zip(a[i], b[i])) if x != y]
+    assert not differ, f"stream_multi: graph outputs (stream, frame) {differ} differ from op by op"
+    print(f"stream_multi: all {total} graph outputs bit-equal to op by op (BLAKE2b of each "
+          f"output's bytes)", flush=True)
+    del rep["digests"], eager["digests"]
+    rep["eager"] = eager
+    return rep
 
 
 def run_chain(dev, rng, profile_dir: str | None) -> dict:
     """60 1080p frames through the flagship stabilizer and the FSR scaler
-    to 4K at sharpness 0.8 (the CLI's `vs,fsr.size=3840x2160` chain), then
-    the scaler alone on the same frames."""
+    to 4K at sharpness 0.8 (the CLI's `vs,fsr.size=3840x2160` chain), the
+    chain compiled (`run_graph`), then the scaler alone on the same
+    frames."""
     import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.utils.compiled import jit_step
 
     out_size = OUT
     _, frames = _shaky_clip(dev, rng)
@@ -1207,6 +1490,11 @@ def run_chain(dev, rng, profile_dir: str | None) -> dict:
           f"frames), {wall_ms:.4f} ms/frame host wall clock", flush=True)
     if profile_dir:
         _profile(chain.step, state, frames, os.path.join(profile_dir, "chain"))
+    del state
+    graph = run_graph("chain", chain.step, jit_step(chain.step), lambda: chain.init(spec, device=dev),
+                      lambda t: (frames[t],), n,
+                      {"warp": 1, "lk_track": 1, "easu_scale": 1, "rcas": 1},
+                      lambda st, out: [out.pixels, out.valid, out.timestamp, st[0].correction.offsets])
 
     _reset_launches()
     _, sc_gpu_ms, sc_wall_ms = _drive(scaler, (), frames, lambda t, st, out: None)
@@ -1214,7 +1502,7 @@ def run_chain(dev, rng, profile_dir: str | None) -> dict:
     assert sc_launches == _want(easu_scale=n, rcas=n), sc_launches
     print(f"scaler alone: 1080p -> 4K EASU + RCAS 0.8, {sc_gpu_ms:.4f} ms/frame on the device, "
           f"{sc_wall_ms:.4f} ms/frame host wall clock (last {N_TIMED} of {n} frames)", flush=True)
-    return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms,
+    return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms, "graph": graph,
             "scaler_gpu_ms": sc_gpu_ms, "scaler_wall_ms": sc_wall_ms, "scaler_launches": sc_launches}
 
 
@@ -1269,9 +1557,11 @@ def run_full_chain(dev, rng, profile_dir: str | None) -> dict:
     outputs in [0, 1], the tracker ok on >= 90% of frames, output jitter
     below input jitter, and the blocky region's steps below 0.7x the input's
     (`_blockiness`).  The deblocker's keep map of the first frame is
-    neither all 0 nor all 1.  Then K1 on the last dense map at 4K against
-    plain, with its device-memory tiles."""
+    neither all 0 nor all 1.  Then the chain compiled (`run_graph`), and K1
+    on the eager drive's last dense map at 4K against plain, with its
+    device-memory tiles."""
     import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.utils.compiled import jit_step
     from livevisionkit_tpu_torch.ops import remap as remap_ops
     from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
     from livevisionkit_tpu_torch.presets import stabilization_preset
@@ -1344,8 +1634,13 @@ def run_full_chain(dev, rng, profile_dir: str | None) -> dict:
           f"(4K60)", flush=True)
     if profile_dir:
         _profile(filt.step, state, [frame(t) for t in range(5)], os.path.join(profile_dir, "full_chain"))
-
     smap = state[0].correction.sample_map(UHD).contiguous()
+    del state
+    graph = run_graph("full_chain", filt.step, jit_step(filt.step), lambda: filt.init(spec, device=dev),
+                      lambda t: (frame(t),), n, {"warp": 1, "lk_track": 1},
+                      lambda st, out: [out.pixels, out.valid, out.timestamp, st[0].correction.offsets],
+                      unordered=True)
+
     img_u8 = clip[-1].contiguous()
     used, over = _paths(lambda c: warp_kernel.warp(img_u8, smap, block_paths=c), dev)
     img_f = img_u8.to(torch.float32) / 255.0
@@ -1361,7 +1656,7 @@ def run_full_chain(dev, rng, profile_dir: str | None) -> dict:
           f"kernel {k1_ms:.4f} ms (u8 3x{h}x{w})", flush=True)
     return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms, "jitter": (j_in, j_out),
             "blockiness": (blocky_in, blocky_out), "k1_used": used, "k1_over": over, "k1_ms": k1_ms,
-            "frame0": frame(0), "x0": x0}
+            "frame0": frame(0), "x0": x0, "graph": graph}
 
 
 def _kernel_launches(fn, calls: int = 3) -> tuple[float, float]:
@@ -1737,53 +2032,109 @@ def _timestamps(n: int) -> list[float]:
     return [float(np.float32(t / 30.0)) for t in range(n)]
 
 
+STEADY_FROM = 20  # outputs before the steady-state window of a driver run
+
+
+def _steady_ms(arrivals: list[float]) -> float:
+    """Host ms per output between the STEADY_FROM-th output's arrival and
+    the last one's (past the capture and the pipeline's fill)."""
+    return (arrivals[-1] - arrivals[STEADY_FROM]) * 1e3 / (len(arrivals) - 1 - STEADY_FROM)
+
+
 def run_lvk_stream(dev, frames, tmp) -> dict:
     """The `lvk-torch` chain (lc + vs + adb) through `stream()` over 60
     in-memory 1080p BGR frames, with synchronizing calls made errors around
-    the whole run (the drain's event waits are the only waits): frames in
-    == 60, out == 60 - delay, output timestamps those of frames 0..59-delay,
-    outputs finite and in [0, 1] within RANGE_EPS, two K1 launches (lc and
-    vs) and one K3 a frame.  A short run first fills the per-shape caches."""
-    from livevisionkit_tpu_torch.runtime.stream import stream
+    each whole run (the drain's event waits are the only waits): op by op
+    (`jit=False`) and as one CUDA graph a frame (the default), timed, then
+    both again with a digest of every output.  In each: frames in == 60,
+    out == 60 - delay, output timestamps those of frames 0..59-delay,
+    outputs finite and in [0, 1] within RANGE_EPS; op by op two K1
+    launches (lc and vs) and one K3 a frame, the graph's at its capture
+    only; every graph output bit-equal to op by op's (a BLAKE2b digest of
+    its bytes, taken in the writer thread of the last two runs).
+    Then the chain's step alone compiled (`run_graph`).  A short run first
+    fills the per-shape caches."""
+    import hashlib
+
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.runtime.stream import _ingest, stream
+    from livevisionkit_tpu_torch.utils.compiled import WARMUP_STEPS, jit_step
 
     filt = _lvk_chain(tmp)
     n, delay = len(frames), filt.delay
-    stream(filt, iter(frames[:delay + 2]), device=dev)
+    stream(filt, iter(frames[:delay + 2]), device=dev, jit=False)
     torch.cuda.synchronize()
-    got = []
 
-    def on_output(px, ts):  # the writer thread: the checks a real encoder's place takes
-        got.append((ts, px.shape, float(px.min()), float(px.max())))
+    def run(jit: bool, digest: bool) -> dict:
+        got = []
 
-    _reset_launches()
-    torch.cuda.set_sync_debug_mode("error")
-    t0 = time.perf_counter()
-    try:
-        stats = stream(filt, iter(frames), on_output=on_output, device=dev)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    wall = time.perf_counter() - t0
-    launches = _launches()
-    assert stats.frames_in == n, f"lvk stream: frames in {stats.frames_in}, want {n}"
-    assert stats.frames_out == n - delay == len(got), (
-        f"lvk stream: frames out {stats.frames_out} ({len(got)} written), want {n - delay}")
-    assert [g[0] for g in got] == _timestamps(n - delay), f"lvk stream: timestamps {[g[0] for g in got]}"
-    bad = [t for t, (_, shape, lo, hi) in enumerate(got)
-           if shape != (3, H, W) or not (-RANGE_EPS <= lo and hi <= 1.0 + RANGE_EPS)]
-    assert not bad, f"lvk stream: outputs {bad} not finite (3, {H}, {W}) in [0, 1] +- {RANGE_EPS}"
-    want = _want(warp=2 * n, lk_track=n)
-    assert launches == want, f"lvk stream: launches {launches}, want {want}"
-    ft, q = stats.frame_time, stats.latency_quantiles()
-    fps = stats.frames_out / wall
-    print(f"lvk stream ({' '.join('-f ' + s for s in LVK_SPECS)}): {n} 1080p BGR frames in, "
-          f"{stats.frames_out} out (delay {delay}), timestamps in order, outputs in "
-          f"[{min(g[2] for g in got):.5f}, {max(g[3] for g in got):.5f}], no sync "
-          f"in the run; launches {launches}; {fps:.2f} frames/s over the run ({wall:.3f} s), "
-          f"{stats.fps:.2f} by the frame stopwatch; frame time {ft.average_ms():.4f} ms +- "
-          f"{ft.deviation_ms():.4f} ms; latency p50 {q['p50_ms']:.4f} / p95 {q['p95_ms']:.4f} / "
-          f"p99 {q['p99_ms']:.4f} ms", flush=True)
-    return {"launches": launches, "fps": fps, "fps_stopwatch": stats.fps,
-            "frame_ms": ft.average_ms(), "frame_dev_ms": ft.deviation_ms(), **q}
+        def on_output(px, ts):  # the writer thread: the checks a real encoder's place takes
+            got.append((ts, px.shape, float(px.min()), float(px.max()), time.perf_counter(),
+                        hashlib.blake2b(px, digest_size=16).digest() if digest else None))
+
+        _reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            stats = stream(filt, iter(frames), on_output=on_output, device=dev, jit=jit)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        mode = "graph" if jit else "op by op"
+        assert stats.frames_in == n, f"lvk stream ({mode}): frames in {stats.frames_in}, want {n}"
+        assert stats.frames_out == n - delay == len(got), (
+            f"lvk stream ({mode}): frames out {stats.frames_out} ({len(got)} written), want {n - delay}")
+        assert [g[0] for g in got] == _timestamps(n - delay), (
+            f"lvk stream ({mode}): timestamps {[g[0] for g in got]}")
+        bad = [t for t, (_, shape, lo, hi, _, _) in enumerate(got)
+               if shape != (3, H, W) or not (-RANGE_EPS <= lo and hi <= 1.0 + RANGE_EPS)]
+        assert not bad, f"lvk stream ({mode}): outputs {bad} not finite (3, {H}, {W}) in [0, 1] +- {RANGE_EPS}"
+        per = WARMUP_STEPS + 1 if jit else n
+        want = _want(warp=2 * per, lk_track=per)
+        assert launches == want, f"lvk stream ({mode}): launches {launches}, want {want}"
+        ft, q = stats.frame_time, stats.latency_quantiles()
+        rep = {"launches": launches, "fps": stats.frames_out / wall, "fps_stopwatch": stats.fps,
+               "frame_ms": ft.average_ms(), "frame_dev_ms": ft.deviation_ms(),
+               "steady_ms": _steady_ms([g[4] for g in got]), "digests": [g[5] for g in got],
+               "lo": min(g[2] for g in got), "hi": max(g[3] for g in got), "wall": wall, **q}
+        mode += ", outputs digested" if digest else ""
+        print(f"lvk stream ({' '.join('-f ' + s for s in LVK_SPECS)}), {mode}: {n} 1080p BGR "
+              f"frames in, {stats.frames_out} out (delay {delay}), timestamps in order, outputs "
+              f"in [{rep['lo']:.5f}, {rep['hi']:.5f}], no sync in the run; launches {launches}; "
+              f"{rep['fps']:.2f} frames/s over the run ({wall:.3f} s), {stats.fps:.2f} by the "
+              f"frame stopwatch; {rep['steady_ms']:.4f} ms/frame host wall clock from output "
+              f"{STEADY_FROM} on; frame time {ft.average_ms():.4f} ms +- {ft.deviation_ms():.4f} "
+              f"ms; latency p50 {q['p50_ms']:.4f} / p95 {q['p95_ms']:.4f} / p99 "
+              f"{q['p99_ms']:.4f} ms", flush=True)
+        return rep
+
+    # Timed without digests, then both again with them.
+    eager, rep = run(jit=False, digest=False), run(jit=True, digest=False)
+    a, b = run(jit=False, digest=True)["digests"], run(jit=True, digest=True)["digests"]
+    differ = [t for t, (x, y) in enumerate(zip(a, b)) if x != y]
+    assert not differ, f"lvk stream: graph outputs {differ} differ from op by op"
+    print(f"lvk stream: all {len(b)} graph outputs bit-equal to op by op (BLAKE2b of each "
+          f"output's bytes)", flush=True)
+
+    fmt = lvk.PixelFormat.YUV
+    clip = [torch.from_numpy(f).to(dev) for f, _ in frames]
+    stamps = torch.arange(n, dtype=torch.float32, device=dev) / 30.0
+    live = torch.ones((), dtype=torch.bool, device=dev)
+
+    def frame(t):
+        return lvk.Frame(pixels=_ingest(clip[t]), timestamp=stamps[t], valid=live,
+                         format=lvk.PixelFormat.BGR).reformat(fmt)
+
+    spec = lvk.FrameSpec(H, W, 3, fmt)
+    rep["graph"] = run_graph("lvk_chain", filt.step, jit_step(filt.step),
+                             lambda: filt.init(spec, device=dev), lambda t: (frame(t),), n,
+                             {"warp": 2, "lk_track": 1},
+                             lambda st, out: [out.pixels, out.valid, out.timestamp,
+                                              st[1].correction.offsets])
+    rep["eager"] = {k: v for k, v in eager.items() if k != "digests"}
+    del rep["digests"]
+    return rep
 
 
 def _hud_stamped(px: np.ndarray) -> bool:
@@ -1822,10 +2173,13 @@ def run_lvk_profile(dev, frames, tmp) -> dict:
 
 
 def run_lvk_trace(dev, frames, tmp) -> dict:
-    """TRACE_FRAMES frames of the chain inside `DeviceTrace`: the Chrome
+    """TRACE_FRAMES frames of the chain inside `DeviceTrace` (the graph
+    captured inside the trace, as the CLI's `--trace` does it): the Chrome
     trace holds every frame span, the runtime's upload / step / download
-    spans and the card's kernels."""
+    spans and the card's kernels, K1 twice and K3 once a frame (the
+    replays) and a warm-up step."""
     from livevisionkit_tpu_torch.runtime.stream import stream
+    from livevisionkit_tpu_torch.utils.compiled import WARMUP_STEPS
     from livevisionkit_tpu_torch.utils.profiling import DeviceTrace
 
     filt = _lvk_chain(tmp)
@@ -1840,9 +2194,14 @@ def run_lvk_trace(dev, frames, tmp) -> dict:
     assert want <= names, f"trace lacks {sorted(want - names)}"
     kernels = sum(1 for e in events if e.get("cat") == "kernel")
     assert kernels > 0, "trace holds no device kernel"
+    traced = _traced_groups([(0.0, 0.0, e.get("name", "")) for e in events if e.get("cat") == "kernel"])
+    steps = TRACE_FRAMES + WARMUP_STEPS
+    want = {"K1/K2": 2 * steps, "K3/K4": steps, "K5": 0, "K6": 0}
+    assert traced == want, f"DeviceTrace: kernels {traced}, want {want}"
     print(f"DeviceTrace: {TRACE_FRAMES} frames, {len(events)} events ({size_mb:.1f} MiB), "
-          f"{kernels} kernels, every frame#t and upload/step/download span present", flush=True)
-    return {"kernels": kernels}
+          f"{kernels} kernels ({traced}: replays and the warm-up step), every frame#t and "
+          f"upload/step/download span present", flush=True)
+    return {"kernels": kernels, "traced": traced}
 
 
 def _bilinear_ops(n_out: int, nc: int) -> int:
@@ -1939,50 +2298,98 @@ def check_lens_correction(dev, clip) -> dict:
     return report
 
 
+PROCESS_CLIP_TRACED = 10  # frames of the traced process_clip run
+CLIP_REPEATS = 3  # timed process_clip calls of each length
+
+
 def run_process_clip(dev, clip) -> dict:
     """`process_clip` of the flagship filter over the 60-frame YUV clip held
-    on the card (as f32 planes), with synchronizing calls made errors: one K1 and one
-    K3 a frame, and every output bit-equal to stepping the same filter frame
-    by frame from the same seed."""
+    on the card (as f32 planes), with synchronizing calls made errors: one
+    CUDA graph replayed a frame, its launches counted at its capture only
+    (the warm-up's and the capture's), every output bit-equal to stepping
+    the same filter frame by frame, op by op, from the same seed (the frame
+    loop timed too); then `process_clip` of the first PROCESS_CLIP_TRACED
+    frames under torch.profiler: K1 and K3 once a replay and once in the
+    warm-up step."""
+    from torch.profiler import ProfilerActivity, profile
+
     import livevisionkit_tpu_torch as lvk
     from livevisionkit_tpu_torch.runtime.offline import process_clip
+    from livevisionkit_tpu_torch.utils.compiled import WARMUP_STEPS
 
     filt, fmt = lvk.flagship_filter(), lvk.PixelFormat.YUV
     n = clip.shape[0]
     pixels = clip.to(torch.float32) / 255.0  # (60, 3, 1080, 1920) f32, 1.5 GB
     torch.cuda.synchronize()
-    _reset_launches()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.set_sync_debug_mode("error")
-    t0 = time.perf_counter()
-    try:
-        start.record()
-        _, out = process_clip(filt, pixels, fmt, device=dev)
-        end.record()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    gpu_ms = start.elapsed_time(end) / n
+
+    def timed(fn):
+        """fn(), its device and host ms in all."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            start.record()
+            out = fn()
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+    # Each call captures its graph; the difference of an n-frame and an
+    # n/2-frame call is n/2 replays (the JAX bench's scan-length
+    # differencing), each call's time the least of CLIP_REPEATS, taken in
+    # turns.
+    half, whole = [], []
+    for _ in range(CLIP_REPEATS):
+        half.append(timed(lambda: process_clip(filt, pixels[:n // 2], fmt, device=dev))[1:])
+        _reset_launches()
+        (_, out), gpu_all, wall_all = timed(lambda: process_clip(filt, pixels, fmt, device=dev))
+        whole.append((gpu_all, wall_all))
     launches = _launches()
-    assert launches == _want(warp=n, lk_track=n), f"process_clip: launches {launches}"
+    per = WARMUP_STEPS + 1
+    assert launches == _want(warp=per, lk_track=per), f"process_clip: launches {launches}"
+    (gpu_all, wall_all), (gpu_half, wall_half) = ([min(c) for c in zip(*runs)] for runs in (whole, half))
+    gpu_ms, wall_ms = ((gpu_all - gpu_half) / (n - n // 2), (wall_all - wall_half) / (n - n // 2))
     stamps = torch.arange(n, dtype=torch.float32, device=dev) / 30.0
     live = torch.ones((), dtype=torch.bool, device=dev)
-    state = filt.init(lvk.FrameSpec(H, W, 3, fmt), device=dev, seed=0)
-    bad = []
-    for t in range(n):
-        state, ref = filt.step(state, lvk.Frame(pixels=pixels[t], timestamp=stamps[t], valid=live,
-                                                format=fmt))
-        if not (torch.equal(out.pixels[t], ref.pixels) and torch.equal(out.valid[t], ref.valid)
-                and torch.equal(out.timestamp[t], ref.timestamp)):
-            bad.append(t)
+
+    def loop():
+        state = filt.init(lvk.FrameSpec(H, W, 3, fmt), device=dev, seed=0)
+        differ = []
+        for t in range(n):
+            state, ref = filt.step(state, lvk.Frame(pixels=pixels[t], timestamp=stamps[t],
+                                                    valid=live, format=fmt))
+            differ.append(_bit_diff(out.pixels[t], ref.pixels) + _bit_diff(out.valid[t], ref.valid)
+                          + _bit_diff(out.timestamp[t], ref.timestamp))
+        return torch.stack(differ)
+
+    _reset_launches()
+    differ, e_gpu, e_wall = timed(loop)
+    e_gpu, e_wall = e_gpu / n, e_wall / n
+    e_launches = _launches()
+    assert e_launches == _want(warp=n, lk_track=n), f"process_clip frame loop: launches {e_launches}"
+    bad = [t for t, d in enumerate(differ.tolist()) if d]
     assert not bad, f"process_clip differs from the frame loop at frames {bad}"
     valid = out.valid.tolist()
     assert valid == [t >= filt.delay for t in range(n)], f"process_clip: valid {valid}"
-    print(f"process_clip: {n} 1080p frames of the flagship filter, bit-equal to the frame loop, "
-          f"launches {launches}; {gpu_ms:.4f} ms/frame device, {wall_ms:.4f} ms/frame host",
-          flush=True)
-    return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms}
+    del out
+
+    k = PROCESS_CLIP_TRACED
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        process_clip(filt, pixels[:k], fmt, device=dev)
+        torch.cuda.synchronize()
+    traced = _traced_groups(_trace_events(prof)[0])
+    want = {"K1/K2": k + WARMUP_STEPS, "K3/K4": k + WARMUP_STEPS, "K5": 0, "K6": 0}
+    assert traced == want, f"process_clip trace: kernels {traced}, want {want}"
+    print(f"process_clip: {n} 1080p frames of the flagship filter, one graph replayed a frame, "
+          f"bit-equal to the op-by-op frame loop, launches at the capture {launches} (the loop's "
+          f"{e_launches}), {traced} in the trace of {k} frames; {gpu_ms:.4f} ms/frame device, "
+          f"{wall_ms:.4f} ms/frame host ({n}-frame call less {n // 2}-frame call, each the "
+          f"least of {CLIP_REPEATS}; the whole {n}-frame call {gpu_all:.1f} / {wall_all:.1f} ms, "
+          f"its capture included); frame loop {e_gpu:.4f} / {e_wall:.4f} ms/frame", flush=True)
+    return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms, "eager_gpu_ms": e_gpu,
+            "eager_wall_ms": e_wall, "traced": traced, "call_ms": (gpu_all, wall_all)}
 
 
 def check_ingest(dev, rng) -> dict:
@@ -2360,14 +2767,16 @@ def check_warp_tiled(dev, rng) -> dict:
 def run_sharded_clip(dev, rng) -> dict:
     """`process_clip_sharded` of the flagship over a CLIP_T-frame shaky
     1080p YUV clip on the card, CLIP_CHUNKS `time` chunks, overlap 48, with
-    synchronizing calls made errors: one K2 and one K3 launch a tick (the
-    chunks share the card: one CLIP_CHUNKS-stream step a tick), against
-    `process_clip` on the same clip by the JAX test's rule
-    (tests/test_offline_sharded.py:60-74): >= 70% of frames valid in both,
-    timestamps within 1e-6, mean pixel difference < 0.01."""
+    synchronizing calls made errors, op by op (one K2 and one K3 launch a
+    tick: the chunks share the card, one CLIP_CHUNKS-stream step a tick)
+    and as a CUDA graph a tick (the default; launches at its capture only),
+    the two bit-equal; against `process_clip` on the same clip by the JAX
+    test's rule (tests/test_offline_sharded.py:60-74): >= 70% of frames
+    valid in both, timestamps within 1e-6, mean pixel difference < 0.01."""
     import livevisionkit_tpu_torch as lvk
     from livevisionkit_tpu_torch.parallel.streams import Mesh
     from livevisionkit_tpu_torch.runtime.offline import process_clip, process_clip_sharded
+    from livevisionkit_tpu_torch.utils.compiled import WARMUP_STEPS
 
     n, fmt = CLIP_T, lvk.PixelFormat.YUV
     _, pixels = _shaky_render(dev, rng, n=n)
@@ -2393,16 +2802,26 @@ def run_sharded_clip(dev, rng) -> dict:
         torch.cuda.synchronize()
         return out, start.elapsed_time(end) / n, (time.perf_counter() - t0) * 1e3 / n, _launches()
 
+    per = WARMUP_STEPS + 1  # a graph's launches: the warm-up's and the capture's
     serial, s_gpu, s_wall, s_launch = timed(lambda: process_clip(filt, clip, fmt, device=dev)[1])
-    assert s_launch == _want(warp=n, lk_track=n), f"process_clip: launches {s_launch}"
+    assert s_launch == _want(warp=per, lk_track=per), f"process_clip: launches {s_launch}"
+    eager, e_gpu, e_wall, e_launches = timed(
+        lambda: process_clip_sharded(filt, clip, fmt, mesh, overlap=CLIP_OVERLAP, jit=False))
     sharded, gpu_ms, wall_ms, launches = timed(
         lambda: process_clip_sharded(filt, clip, fmt, mesh, overlap=CLIP_OVERLAP))
     ticks = CLIP_OVERLAP + -(-n // CLIP_CHUNKS)
-    if len(set(devices)) == 1:
+    groups = len(set(devices))
+    if groups == 1:
         want = _want(warp_batched=ticks, lk_track=ticks)
     else:
         want = _want(warp_batched=ticks * CLIP_CHUNKS, lk_track=ticks * CLIP_CHUNKS)
+    assert e_launches == want, f"process_clip_sharded (op by op): launches {e_launches}, want {want}"
+    want = _want(warp_batched=per * groups, lk_track=per * groups)
     assert launches == want, f"process_clip_sharded: launches {launches}, want {want}"
+    differ = [int(_bit_diff(a, b)) for a, b in zip((sharded.pixels, sharded.timestamp, sharded.valid),
+                                                   (eager.pixels, eager.timestamp, eager.valid))]
+    assert not any(differ), f"process_clip_sharded: graph differs from op by op in {differ} elements"
+    del eager
     assert sharded.pixels.shape == serial.pixels.shape
     sv, cv = serial.valid.cpu().numpy(), sharded.valid.cpu().numpy()
     both = sv & cv
@@ -2417,11 +2836,13 @@ def run_sharded_clip(dev, rng) -> dict:
     print(f"process_clip_sharded: {n} 1080p frames of the flagship in {CLIP_CHUNKS} chunks on "
           f"{sorted({str(d) for d in devices})}, overlap {CLIP_OVERLAP}: {ticks} ticks, launches "
           f"{launches}; {int(cv.sum())} valid ({int(sv.sum())} serial), {int(both.sum())} in both, "
-          f"mean |pixel diff| {mean_diff:.3e} (max frame {float(diff.max()):.3e}); "
-          f"{gpu_ms:.4f} ms/frame device, {wall_ms:.4f} ms/frame host; process_clip "
-          f"{s_gpu:.4f} / {s_wall:.4f} ms/frame", flush=True)
+          f"mean |pixel diff| {mean_diff:.3e} (max frame {float(diff.max()):.3e}); a graph a "
+          f"tick, bit-equal to op by op; {gpu_ms:.4f} ms/frame device, {wall_ms:.4f} ms/frame "
+          f"host (op by op {e_gpu:.4f} / {e_wall:.4f}); process_clip {s_gpu:.4f} / "
+          f"{s_wall:.4f} ms/frame (each graph call with its capture)", flush=True)
     return {"launches": launches, "gpu_ms": gpu_ms, "wall_ms": wall_ms, "serial_gpu_ms": s_gpu,
-            "serial_wall_ms": s_wall, "mean_diff": mean_diff, "both": int(both.sum())}
+            "serial_wall_ms": s_wall, "eager_gpu_ms": e_gpu, "eager_wall_ms": e_wall,
+            "mean_diff": mean_diff, "both": int(both.sum())}
 
 
 def run_distributed_solve(dev, rng) -> dict:
@@ -2476,13 +2897,17 @@ def run_dryrun(dev) -> dict:
     """`dryrun_multichip(N_TILES)` at full size: the tiny flagship over a
     (2, 2) mesh at 1080p, the distributed solve, the `vs + adb + cas` chain
     over a 1 x 4 tile mesh at 4K and the 4K EASU halo remap (four K1
-    launches).  The chain's output is held bit-equal against the same chain
-    stepped without a mesh, and the remap within 1e-5 against K1's solo
-    launch."""
+    launches); the meshed ticks through `jit_step` (a graph a group, its
+    launches at its capture).  The flagship tick's output is held bit-equal
+    against the same mesh stepped op by op, the chain's against the same
+    chain stepped op by op without a mesh, and the remap within 1e-5
+    against K1's solo launch."""
     import livevisionkit_tpu_torch as lvk
     from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
     from livevisionkit_tpu_torch.parallel import dryrun
+    from livevisionkit_tpu_torch.parallel import streams as par
     from livevisionkit_tpu_torch.parallel.streams import MultiStreamFilter
+    from livevisionkit_tpu_torch.utils.compiled import WARMUP_STEPS
 
     devices = mesh_devices(dev, N_TILES)
     _reset_launches()
@@ -2492,11 +2917,21 @@ def run_dryrun(dev) -> dict:
     wall_s = time.perf_counter() - t0
     launches = _launches()
     one_card = len(set(devices)) == 1
-    # One tick each of the flagship mesh (its rows share the card: one
-    # group) and the chain, and K1 once per tile of the halo remap.
-    want = (_want(warp=N_TILES, warp_batched=2, lk_track=2) if one_card
-            else _want(warp=N_TILES, warp_batched=3, lk_track=3))
+    # One graph a group, of the flagship mesh (its rows share the card: one
+    # group) and of the chain, and K1 once per tile of the halo remap.
+    per = WARMUP_STEPS + 1
+    groups = 2 if one_card else 3
+    want = _want(warp=N_TILES, warp_batched=per * groups, lk_track=per * groups)
     assert launches == want, f"dryrun: launches {launches}, want {want}"
+    mesh, px = rep["mesh"], rep["frames"]
+    n_streams = px.shape[0]
+    eager = MultiStreamFilter(dryrun.tiny_flagship(), n_streams, mesh)
+    frames = dryrun._frames(px)
+    _, eager_out = eager.step(eager.init(lvk.FrameSpec(H, W, 1, lvk.PixelFormat.GRAY), seed=0),
+                              eager._shard(frames, tile_w=True))
+    eager_out = par.unshard(eager_out, px.device)
+    assert torch.equal(rep["out"].pixels, eager_out.pixels) and torch.equal(rep["out"].valid, eager_out.valid), (
+        "dryrun: the flagship mesh tick's graph differs from op by op")
     ref = MultiStreamFilter(rep["chain"], 1)
     ref_state = ref.init(lvk.FrameSpec(UHD[0], UHD[1], 1, lvk.PixelFormat.GRAY), device=dev, seed=0)
     _, ref_out = ref.step(ref_state, rep["chain_frames"])
@@ -2507,9 +2942,10 @@ def run_dryrun(dev) -> dict:
     solo = warp_kernel.warp(img.contiguous(), smap.contiguous(), fill=0.0, fmt=lvk.PixelFormat.GRAY)
     err = float((rep["remap_out"] - solo).abs().max())
     assert err <= 1e-5, f"dryrun: 4K halo remap differs from solo K1 by {err}"
-    print(f"dryrun_multichip({N_TILES}) on {sorted({str(d) for d in devices})}: {wall_s:.2f} s, "
-          f"launches {launches}; 4K chain bit-equal to the unmeshed chain; halo remap vs solo K1 "
-          f"{err:.3e}", flush=True)
+    print(f"dryrun_multichip({N_TILES}) on {sorted({str(d) for d in devices})}: {wall_s:.2f} s "
+          f"(the captures included), launches {launches}; the flagship mesh tick's graph "
+          f"bit-equal to op by op, the 4K chain's to the unmeshed chain op by op; halo remap vs "
+          f"solo K1 {err:.3e}", flush=True)
     return {"launches": launches, "wall_s": wall_s, "remap_err": err}
 
 
@@ -2539,6 +2975,39 @@ def run_multidevice_slice(dev) -> dict:
     return {"tiled": check_warp_tiled(dev, rng), "clip": run_sharded_clip(dev, rng),
             "solve": run_distributed_solve(dev, rng), "dryrun": run_dryrun(dev),
             "multiproc": run_multiproc()}
+
+
+def check_sync_capture(dev) -> None:
+    """A step that synchronizes, the flagship's with a host read of its
+    output's valid flag, raises at its first call and makes no graph; then
+    the card still steps."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.utils.compiled import jit_step
+
+    filt = lvk.flagship_filter()
+    spec = lvk.FrameSpec(H, W, 3, lvk.PixelFormat.YUV)
+    frame = lvk.Frame.create(torch.full((3, H, W), 0.5, device=dev), fmt=lvk.PixelFormat.YUV)
+
+    def reads_back(state, fr):
+        state, out = filt.step(state, fr)
+        if bool(out.valid):  # a device value read on the host
+            out = out.replace(pixels=out.pixels * 1.0)
+        return state, out
+
+    step = jit_step(reads_back)
+    try:
+        step(filt.init(spec, device=dev), frame)
+    except RuntimeError as e:
+        err = str(e).splitlines()[0]
+    else:
+        raise AssertionError("a synchronizing step was captured")
+    assert step.n_graphs == 0, "a synchronizing step left a graph"
+    ok = jit_step(filt.step)
+    _, out = ok(filt.init(spec, device=dev), frame)
+    torch.cuda.synchronize()
+    assert ok.n_graphs == 1 and out.pixels.shape == (3, H, W)
+    print(f"sync check: a step reading a device value back raised at its first call ({err!r}) "
+          f"and made no graph; the flagship's graph captured after it", flush=True)
 
 
 def main() -> int:
@@ -2580,7 +3049,8 @@ def main() -> int:
     pairs = []
     for k in range(2):
         profile = args.profile if k == 0 else None
-        pairs.append((run_slice(dev, rng, profile), run_multistream(dev, poses, clips, profile)))
+        pairs.append((run_slice(dev, rng, profile, graph=k == 0),
+                      run_multistream(dev, poses, clips, profile, graph=k == 0)))
     for k, (a, b) in enumerate(pairs):
         print(f"pair {k + 1}: solo step {a['gpu_ms']:.4f} / {a['wall_ms']:.4f} ms/frame; "
               f"{STREAMS}-stream tick {b['gpu_ms']:.4f} / {b['wall_ms']:.4f} ms/tick = "
@@ -2603,6 +3073,7 @@ def main() -> int:
     rt = run_runtime_slice(dev, clips[0], args.profile)
     del clips
     md = run_multidevice_slice(dev)
+    check_sync_capture(dev)
 
     def entry(name, source, replaces, launches, rep, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"livevisionkit_tpu_torch/csrc/{source}",
@@ -2680,6 +3151,24 @@ def main() -> int:
           f" | estimate_sharded {md['solve']['ms']:.4f} ms (solo {md['solve']['solo_ms']:.4f})"
           f" | dryrun {md['dryrun']['wall_s']:.2f} s | multiproc {md['multiproc']['wall_s']:.1f} s",
           flush=True)
+    graphs = [("slice", sl), ("8-stream tick", ms), ("chain", ch), ("8-stream chain tick", chx),
+              ("mesh", me), ("8-stream mesh tick", mex), ("4K full chain", fc),
+              ("8-stream vs+adb+cas tick", adb)]
+    print(f"{gpu} | op by op -> CUDA graph, ms/frame (ms/tick) device / host: "
+          + " | ".join(f"{name} {r['gpu_ms']:.4f} / {r['wall_ms']:.4f} -> {r['graph']['gpu_ms']:.4f}"
+                       f" / {r['graph']['wall_ms']:.4f}" for name, r in graphs)
+          + f" | lvk chain step -> {rt['stream']['graph']['gpu_ms']:.4f} / "
+          f"{rt['stream']['graph']['wall_ms']:.4f}"
+          f" | lvk stream {rt['stream']['eager']['steady_ms']:.4f} -> {rt['stream']['steady_ms']:.4f}"
+          f" ms/frame host ({rt['stream']['eager']['fps']:.2f} -> {rt['stream']['fps']:.2f} frames/s"
+          f" over the run)"
+          f" | stream_multi {sm['eager']['steady_ms']:.4f} -> {sm['steady_ms']:.4f} ms/tick host"
+          f" ({sm['eager']['fps']:.1f} -> {sm['fps']:.1f} frames/s)"
+          f" | process_clip {rt['clip']['eager_gpu_ms']:.4f} / {rt['clip']['eager_wall_ms']:.4f} ->"
+          f" {rt['clip']['gpu_ms']:.4f} / {rt['clip']['wall_ms']:.4f}"
+          f" | process_clip_sharded x{CLIP_CHUNKS} {md['clip']['eager_gpu_ms']:.4f} /"
+          f" {md['clip']['eager_wall_ms']:.4f} -> {md['clip']['gpu_ms']:.4f} /"
+          f" {md['clip']['wall_ms']:.4f}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

@@ -82,6 +82,18 @@ class StreamBuffer:
             new_count = torch.where(advance, new_count, self.count)
         return dataclasses.replace(self, start=new_start, count=new_count)
 
+    def skip(self, n: int | torch.Tensor = 1) -> "StreamBuffer":
+        """Drop the n oldest elements (reference StreamBuffer::skip); n is
+        an int or a 0-d integer tensor, at most `count` take effect."""
+        n = (torch.clamp(self.count, max=n) if not isinstance(n, torch.Tensor)
+             else torch.minimum(n.to(self.count.dtype), self.count))
+        return dataclasses.replace(self, start=torch.remainder(self.start + n, self.capacity),
+                                   count=self.count - n)
+
+    def clear(self) -> "StreamBuffer":
+        return dataclasses.replace(self, start=torch.zeros_like(self.start),
+                                   count=torch.zeros_like(self.count))
+
     def get(self, logical: int | torch.Tensor) -> dict[str, torch.Tensor]:
         """Element at logical index (0 = oldest)."""
         idx = self._slot(logical).reshape(1)
@@ -89,6 +101,14 @@ class StreamBuffer:
 
     def oldest(self) -> dict[str, torch.Tensor]:
         return self.get(0)
+
+    def newest(self) -> dict[str, torch.Tensor]:
+        return self.get(torch.clamp(self.count - 1, min=0))
+
+    def centre(self) -> dict[str, torch.Tensor]:
+        """Middle element of the current window (reference
+        StreamBuffer::centre, the smoothing anchor)."""
+        return self.get(torch.clamp(torch.div(self.count - 1, 2, rounding_mode="floor"), min=0))
 
     def logical_weights(self, weights: torch.Tensor) -> torch.Tensor:
         """w_phys[slot] = w_logical[(slot - start) mod capacity] (a gather,

@@ -44,6 +44,11 @@ class FrameSpec:
         return cls(height=frame.height, width=frame.width, channels=frame.channels,
                    format=frame.format, has_alpha=frame.alpha is not None)
 
+    @property
+    def size(self) -> tuple[int, int]:
+        """(height, width)."""
+        return (self.height, self.width)
+
 
 def where_state(pred: torch.Tensor, new: Any, old: Any) -> Any:
     """Select between two states of the same structure, tensor by tensor:

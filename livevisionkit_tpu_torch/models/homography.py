@@ -73,6 +73,23 @@ class Homography:
     m: torch.Tensor  # (3, 3) float32
 
     @classmethod
+    def identity(cls, device: torch.device | str = "cuda") -> "Homography":
+        return cls(m=torch.eye(3, dtype=torch.float32, device=device))
+
+    @classmethod
+    def from_matrix(cls, m) -> "Homography":
+        """From a (3, 3) matrix: a tensor (kept on its device) or an array."""
+        return cls(m=torch.as_tensor(m).to(torch.float32))
+
+    @classmethod
+    def from_affine(cls, a) -> "Homography":
+        """From a (2, 3) affine matrix, a tensor (kept on its device) or an
+        array (reference Homography::FromAffineMatrix, Math/Homography.cpp).
+        The bottom row is built on the device, not copied from the host."""
+        a = torch.as_tensor(a).to(torch.float32)
+        return cls(m=torch.cat([a, torch.eye(3, dtype=torch.float32, device=a.device)[2:]]))
+
+    @classmethod
     def from_similarity(cls, scale, angle, tx, ty) -> "Homography":
         """Similarity transform: scale * R(angle) + translation; arguments
         are 0-d float32 tensors on one device."""
@@ -100,6 +117,10 @@ class Homography:
         s = adj[2, 2]
         scale = torch.where(s.abs() > 1e-12, 1.0 / s, 1.0)
         return Homography(m=adj * scale)
+
+    def normalized(self) -> "Homography":
+        """Scaled so m[2, 2] == 1 (the projective scale ambiguity)."""
+        return Homography(m=self.m / self.m[2, 2])
 
     def transform(self, pts: torch.Tensor) -> torch.Tensor:
         """Transform (..., 2) (x, y) points."""

@@ -68,7 +68,7 @@ def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
     return pyr
 
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _weight_mat(
     in_size: int, out_size: int, antialias: bool, device: torch.device
 ) -> torch.Tensor:
@@ -81,6 +81,8 @@ def _weight_mat(
     meets a float32 array, as in JAX; the y ratio 1080 -> 272 is not an
     integer, so `F.interpolate(antialias=True)` does not give these edge
     weights.  Cached per (sizes, mode, device): the weights depend on shapes only.
+    Never evicted: a captured CUDA graph (utils/compiled.py) reads them
+    where they lie.
     """
     inv_scale = 1.0 / (out_size / in_size)
     inv = torch.tensor(inv_scale, dtype=torch.float32)

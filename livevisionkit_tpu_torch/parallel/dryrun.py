@@ -43,7 +43,8 @@ def _frames(pixels: torch.Tensor) -> Frame:
 
 
 def dryrun_multichip(n_devices: int, devices=None, size=(96, 128), uhd=(2160, 3840)) -> dict:
-    """One step of each multi-device path, shapes checked:
+    """One step of each multi-device path, shapes checked (the meshed
+    ticks through `MultiStreamFilter.jit_step`, as the JAX dry run's):
 
       * the tiny flagship over a ("stream", "tile") mesh (2 tiles when
         `n_devices` is even) at `size`;
@@ -69,7 +70,7 @@ def dryrun_multichip(n_devices: int, devices=None, size=(96, 128), uhd=(2160, 38
     ms = par.MultiStreamFilter(tiny_flagship(), n_streams, mesh)
     states = ms.init(FrameSpec(height=h, width=w, channels=1, format=GRAY))
     pixels = torch.from_numpy(rng.uniform(size=(n_streams, 1, h, w)).astype(np.float32)).to(first)
-    states, out = ms.step(states, ms._shard(_frames(pixels), tile_w=True))
+    states, out = ms.jit_step()(states, ms._shard(_frames(pixels), tile_w=True))
     out = par.unshard(out, first)
     assert out.pixels.shape == (n_streams, 1, h, w), out.pixels.shape
 
@@ -89,7 +90,7 @@ def dryrun_multichip(n_devices: int, devices=None, size=(96, 128), uhd=(2160, 38
     states4 = ms4.init(FrameSpec(height=h4, width=w4, channels=1, format=GRAY))
     px4 = torch.from_numpy(rng.uniform(size=(1, 1, h4, w4)).astype(np.float32)).to(first)
     frames4 = _frames(px4)
-    states4, out4 = ms4.step(states4, ms4._shard(frames4, tile_w=True))
+    states4, out4 = ms4.jit_step()(states4, ms4._shard(frames4, tile_w=True))
     out4 = par.unshard(out4, first)
     assert out4.pixels.shape == (1, 1, h4, w4), out4.pixels.shape
 
@@ -104,7 +105,7 @@ def dryrun_multichip(n_devices: int, devices=None, size=(96, 128), uhd=(2160, 38
           f"out={tuple(out.pixels.shape)}, distributed solve field={tuple(fld.offsets.shape)}, "
           f"{h4}x{w4} chain mesh={mesh4k.shape} out={tuple(out4.pixels.shape)}, "
           f"halo remap={tuple(out_sh.shape)} (halo 192)", flush=True)
-    return {"mesh": mesh, "out": out, "field": fld, "chain": chain, "chain_frames": frames4,
+    return {"mesh": mesh, "frames": pixels, "out": out, "field": fld, "chain": chain, "chain_frames": frames4,
             "chain_out": out4, "remap_in": (px4[0], smap4, mesh4k), "remap_out": out_sh}
 
 

@@ -166,3 +166,7 @@ class MultiHostStreamFilter:
     def step(self, states: Any, frames: list[Shard], drain: torch.Tensor | None = None):
         """One tick of this process's streams (`MultiStreamFilter.step`)."""
         return self._inner.step(states, frames, drain)
+
+    def jit_step(self):
+        """`step` compiled (`MultiStreamFilter.jit_step`)."""
+        return self._inner.jit_step()

@@ -14,7 +14,9 @@ hand-batched copy of the tracker exists.
 
 RANSAC draws with ``randomness="different"``: each stream draws its own
 hypotheses from the state's one generator.  (In the JAX package every
-stream starts from the same key.)
+stream starts from the same key.)  `MultiStreamFilter.jit_step()` is the
+batched step as one CUDA graph (utils/compiled.py), as the JAX package's
+is ``jax.jit``.
 
 The device mesh.  The JAX package shards the stacked streams over a
 ``Mesh(("stream", "tile"))`` of its local devices and lets pjit place
@@ -48,6 +50,7 @@ import torch.utils._pytree as pytree
 
 from livevisionkit_tpu_torch.data.frame import Frame
 from livevisionkit_tpu_torch.filters.base import FrameSpec, VideoFilter
+from livevisionkit_tpu_torch.utils.compiled import jit_step
 
 
 @contextlib.contextmanager
@@ -259,10 +262,23 @@ class MultiStreamFilter:
         Frame on any device or its `_shard`; each group gathers its stripes
         on its first tile device, steps, and re-stripes.  Returns lists of
         `Shard`s (`unshard` assembles them)."""
+        return self._run(self._step, states, frames, drain)
+
+    def jit_step(self) -> Callable:
+        """`step` compiled (utils/compiled.jit_step, the JAX package's
+        ``jax.jit(self.step, donate_argnums=0)``): on the card one CUDA
+        graph of the batched step, or with a mesh one graph per group, on
+        the group's first tile device (the gathers and stripes between
+        groups stay op by op).  The states are donated; the outputs stay
+        valid until the next call.  On the CPU it is `step`."""
+        compiled = jit_step(self._step)
+        return lambda states, frames, drain=None: self._run(compiled, states, frames, drain)
+
+    def _run(self, step: Callable, states: Any, frames: Any, drain: torch.Tensor | None):
         if self.mesh is None:
             if drain is None:
                 drain = torch.zeros(self.n_streams, dtype=torch.bool, device=frames.device)
-            return self._step(states, frames, drain)
+            return step(states, frames, drain)
         if not isinstance(frames, list):
             frames = self._shard(frames, tile_w=False)
         new_states, outs = [], []
@@ -270,7 +286,7 @@ class MultiStreamFilter:
             dev = st.devices[0]
             dr = (torch.zeros(len(st.streams), dtype=torch.bool, device=dev) if drain is None
                   else _take(drain, st.streams, dev))
-            state, out = self._step(_gather(st.tree, dev), _gather(fr.tree, dev), dr)
+            state, out = step(_gather(st.tree, dev), _gather(fr.tree, dev), dr)
             new_states.append(Shard(st.streams, st.devices, _stripe(state, st.devices, self.tile_frames)))
             outs.append(Shard(st.streams, st.devices, _stripe(out, st.devices, self.tile_frames)))
         return new_states, outs

@@ -12,7 +12,9 @@ Design, as in the JAX package:
     15-deep input queue, per stream);
   * the main loop assembles a LOCKSTEP BATCH, one frame per live stream,
     uploads it as one (S, H, W, 3) u8 tensor and runs the batched step
-    without waiting for the device;
+    without waiting for the device: on the card one CUDA graph a tick
+    (utils/compiled.jit_step), as the JAX runtime dispatches one compiled
+    program a tick;
   * a stream that ended keeps its slot with valid=False bubbles flagged
     drain=True, so its delay-queue residue emits while the others run; a
     stream that is merely slow gets drain=False bubbles, which FREEZE its
@@ -22,10 +24,12 @@ Design, as in the JAX package:
     fans results out to per-stream writer threads.
 
 On a CUDA device a batch goes up from a ring of `inflight + 1` pinned host
-buffers with a non-blocking copy, and outputs come back the same way into
-pinned memory (runtime/transfer.py, shared with the solo driver).  The
+buffers with a non-blocking copy into the graph's static inputs, and
+outputs come back the same way into pinned memory (runtime/transfer.py,
+shared with the solo driver), on the stream that replays the graph.  The
 per-tick timestamps and flags ride in the same upload, so the loop makes
-no synchronizing copy.
+no synchronizing copy, and `drain` is a per-stream device flag: one graph
+serves live, stalled and draining ticks.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from livevisionkit_tpu_torch.parallel.streams import MultiStreamFilter, batched
 from livevisionkit_tpu_torch.runtime.stream import _ingest
 from livevisionkit_tpu_torch.runtime.transfer import Uploader, download
 from livevisionkit_tpu_torch.types import PixelFormat
+from livevisionkit_tpu_torch.utils.compiled import jit_step
 from livevisionkit_tpu_torch.utils.profiling import Stopwatch
 
 
@@ -77,6 +82,7 @@ def stream_multi(
     stop_event: threading.Event | None = None,
     flush: bool = True,
     slow_stream_timeout: float | None = 0.25,
+    jit: bool = True,
 ) -> MultiStreamStats:
     """Run `filt` over S concurrent `readers` (each yields
     (bgr_hwc_uint8, timestamp)) on `device`.
@@ -89,6 +95,7 @@ def stream_multi(
     stalling the other S-1 streams (no frame is dropped: its next frame
     rides a later batch).  None restores strict lockstep.  The first frame
     of each stream is always waited for (it defines the slot shape).
+    `jit=False` steps op by op (the same arithmetic).
     """
     n = len(readers)
     device = torch.device(device)
@@ -144,20 +151,34 @@ def stream_multi(
     # (bubbles advance it with identity motion, emitting the residue while
     # other streams still run), a merely stalled slot FREEZES it (no frame
     # loss; see VideoFilter.step).  The terminal flush drains all.
-    step = batched(one_step)
+    batch_step = batched(one_step)
+
+    def tick(state, raw_u8, meta):
+        """One tick from the upload: (S, H, W, 3) u8 frames and the (S, 3)
+        f32 block of (timestamp, live, drain)."""
+        return batch_step(state, raw_u8, meta[:, 0], meta[:, 1] > 0.5, meta[:, 2] > 0.5)
+
+    compiled = jit_step(tick) if jit else None
+    step = compiled or tick
 
     states = None
     upload = None
+    inputs = None  # the compiled step's static (frames, meta), once captured
     pending: deque = deque()
 
-    def send(raws, tss, lives, drains):
-        """Upload one tick: (S, H, W, 3) u8 frames and an (S, 3) f32 block
-        of (timestamp, live, drain)."""
+    def run(raws, tss, lives, drains):
+        """Upload one tick and step it."""
+        nonlocal states, inputs
         frames, meta = upload.host()
         np.stack(raws, out=frames)
         meta[:] = np.stack([tss, lives, drains], axis=1)
-        frames, meta = upload.send()
-        return frames, meta[:, 0], meta[:, 1] > 0.5, meta[:, 2] > 0.5
+        frames, meta = upload.send(inputs)
+        states, out = step(states, frames, meta)
+        if compiled is not None and inputs is None:
+            inputs = compiled.static_inputs(states, frames, meta)
+        stats.batches += 1
+        pending.append(download(out))
+        drain(block_all=False)
 
     def drain(block_all: bool):
         while pending and (block_all or len(pending) > inflight):
@@ -230,20 +251,14 @@ def stream_multi(
                 upload = Uploader([((n, *raws[0].shape), torch.uint8), ((n, 3), torch.float32)],
                                   device, inflight + 1)
             stats.batch_time.tick()
-            states, out = step(states, *send(raws, tss, lives, eof))
-            stats.batches += 1
-            pending.append(download(out))
-            drain(block_all=False)
+            run(raws, tss, lives, eof)
         # Flush: run `delay` bubble batches so frames still inside delay
         # queues emit (the reference's stream() drops them at termination,
         # VideoFilter.cpp:170-200; a serving runtime must not lose frames).
         if flush and states is not None and not stop_event.is_set():
             bubble = [np.zeros_like(last_frame[0])] * n
             for _ in range(delay):
-                states, out = step(states, *send(bubble, [0.0] * n, [False] * n, [True] * n))
-                stats.batches += 1
-                pending.append(download(out))
-                drain(block_all=False)
+                run(bubble, [0.0] * n, [False] * n, [True] * n)
         drain(block_all=True)
     finally:
         stop_event.set()

@@ -44,15 +44,21 @@ class Uploader:
             self.events[k] = None
         return [b.numpy() for b in self.buffers[k]]
 
-    def send(self) -> list[torch.Tensor]:
-        """Copy the slot filled since `host()` to the device and move on."""
+    def send(self, out: Sequence[torch.Tensor] | None = None) -> list[torch.Tensor]:
+        """Copy the slot filled since `host()` to the device, into `out`
+        when given (a compiled step's static inputs), and move on."""
         k = self.slot
         self.slot = (k + 1) % len(self.buffers)
-        if not self.cuda:
-            return [b.clone() for b in self.buffers[k]]
-        out = [b.to(self.device, non_blocking=True) for b in self.buffers[k]]
-        self.events[k] = torch.cuda.Event()
-        self.events[k].record(torch.cuda.current_stream(self.device))
+        if out is None:
+            out = [b.to(self.device, non_blocking=True) if self.cuda else b.clone()
+                   for b in self.buffers[k]]
+        else:
+            out = list(out)
+            for dst, b in zip(out, self.buffers[k]):
+                dst.copy_(b, non_blocking=self.cuda)
+        if self.cuda:
+            self.events[k] = torch.cuda.Event()
+            self.events[k].record(torch.cuda.current_stream(self.device))
         return out
 
 

@@ -34,6 +34,14 @@ class FeatureGrid:
     scores: torch.Tensor  # (G,) float32, 0 for empty slots
     valid: torch.Tensor  # (G,) bool
 
+    @property
+    def capacity(self) -> int:
+        return self.points.shape[0]
+
+    def count(self) -> torch.Tensor:
+        """0-d int64: the valid slots (on the device, not read back)."""
+        return self.valid.sum()
+
 
 def _contiguous_arc(b: torch.Tensor, arc_length: int) -> torch.Tensor:
     """Any contiguous circular run of >= 9 Trues along axis 0 (= 16), by

@@ -11,6 +11,7 @@ import livevisionkit_tpu_torch as lvt
 from livevisionkit_tpu_torch.filters.base import CompositeFilter, VideoFilter
 from livevisionkit_tpu_torch.filters.lens_correction import LensCorrectionFilter
 from livevisionkit_tpu_torch.filters.stabilization import StabilizationFilter
+from livevisionkit_tpu_torch.models.homography import Homography
 from livevisionkit_tpu_torch.models.quad import Quad
 from livevisionkit_tpu_torch.models.warp_field import WarpField
 from livevisionkit_tpu_torch.ops import remap
@@ -33,6 +34,7 @@ ENTRY_POINTS = {
     "path_smoother.init": path_smoother.init,
     "features.initial_thresholds": features.initial_thresholds,
     "WarpField.identity": WarpField.identity,
+    "Homography.identity": Homography.identity,
     "Quad.from_rect": Quad.from_rect,
     "remap.identity_map": remap.identity_map,
     "stream": stream,

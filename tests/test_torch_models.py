@@ -174,3 +174,65 @@ def test_path_smoother_matches_jax_over_8_steps():
         assert bool(rt) == bool(rj)
         assert abs(float(st.smoothing) - float(sj.smoothing)) <= 1e-5
         assert abs(float(st.drift_ema) - float(sj.drift_ema)) <= 1e-5
+
+
+# ------------------------------------------------------------ the last missing methods
+
+
+def test_homography_constructors_and_normalized_match_jax():
+    """identity, from_matrix (array and tensor), from_affine and normalized
+    equal to the JAX package's (exact: the same float32 operations)."""
+    rng = np.random.default_rng(7)
+    m = rng.normal(size=(3, 3)).astype(np.float32) + np.eye(3, dtype=np.float32) * 2
+    a = rng.normal(size=(2, 3)).astype(np.float32)
+    assert np.array_equal(th.Homography.identity(device="cpu").m.numpy(),
+                          np.asarray(jh.Homography.identity().m))
+    for src in (m, torch.from_numpy(m)):
+        got = th.Homography.from_matrix(src)
+        assert got.m.dtype == torch.float32 and np.array_equal(got.m.numpy(), m)
+    for src in (a, torch.from_numpy(a)):
+        np.testing.assert_array_equal(th.Homography.from_affine(src).m.numpy(),
+                                      np.asarray(jh.Homography.from_affine(jnp.asarray(a)).m))
+    np.testing.assert_allclose(th.Homography.from_matrix(m).normalized().m.numpy(),
+                               np.asarray(jh.Homography.from_matrix(m).normalized().m),
+                               rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("skip", [0, 2, 9, "tensor"])
+def test_stream_buffer_skip_clear_newest_centre_match_jax(skip):
+    """After 1..7 pushes into a 5-slot buffer: oldest, newest and centre,
+    then skip(n) (an int, or a 0-d tensor of 3) and clear, all equal to the
+    JAX package's StreamBuffer."""
+    from livevisionkit_tpu.data.stream_buffer import StreamBuffer as JB
+    from livevisionkit_tpu_torch.data.stream_buffer import StreamBuffer as TB
+
+    jb = JB.create({"x": jnp.zeros((2,), jnp.float32)}, 5)
+    tb = TB.create({"x": torch.zeros(2)}, 5)
+    for i in range(7):
+        v = np.float32([i, -i])
+        jb, tb = jb.push({"x": jnp.asarray(v)}), tb.push({"x": torch.from_numpy(v)})
+        for name in ("oldest", "newest", "centre"):
+            assert np.array_equal(getattr(tb, name)()["x"].numpy(),
+                                  np.asarray(getattr(jb, name)()["x"])), (i, name)
+        n_j, n_t = (jnp.int32(3), torch.tensor(3)) if skip == "tensor" else (skip, skip)
+        js, ts = jb.skip(n_j), tb.skip(n_t)
+        assert (int(ts.start), int(ts.count)) == (int(js.start), int(js.count)), i
+        if int(js.count):
+            assert np.array_equal(ts.oldest()["x"].numpy(), np.asarray(js.oldest()["x"]))
+    jc, tc = jb.clear(), tb.clear()
+    assert (int(tc.start), int(tc.count)) == (int(jc.start), int(jc.count)) == (0, 0)
+
+
+def test_frame_spec_size_and_feature_grid_counts_match_jax():
+    from livevisionkit_tpu.filters.base import FrameSpec as JSpec
+    from livevisionkit_tpu_torch.filters.base import FrameSpec as TSpec
+
+    assert TSpec(48, 64, 1).size == JSpec(48, 64, 1).size == (48, 64)
+    rng = np.random.default_rng(8)
+    pts = rng.uniform(0, 60, size=(24, 2)).astype(np.float32)
+    sc = rng.uniform(size=24).astype(np.float32)
+    va = rng.uniform(size=24) > 0.4
+    jg = jfeat.FeatureGrid(points=jnp.asarray(pts), scores=jnp.asarray(sc), valid=jnp.asarray(va))
+    tg = tfeat.FeatureGrid(points=_t(pts), scores=_t(sc), valid=_t(va))
+    assert tg.capacity == jg.capacity == 24
+    assert int(tg.count()) == int(jg.count()) == int(va.sum())

@@ -621,27 +621,39 @@ def test_stream_multi_matches_solo_steps():
 def test_stream_multi_slow_stream_does_not_stall_batch():
     """A slow decoder gets valid=False bubbles (its state frozen) instead of
     stalling the other stream; none of its frames is lost, order holds, and
-    the fast stream finishes well before the slow one."""
+    the fast stream finishes before the slow one.  The slow reader hands
+    over its first frame (the driver waits for every stream's first) and
+    the rest only once the fast stream's last output has arrived: an
+    ordering no load can break, where a sleeping reader raced a tick."""
     rng = np.random.default_rng(2)
     n_frames = 6
     clips = [_bgr_clip(rng, n_frames, 0), _bgr_clip(rng, n_frames, 1)]
+    fast_done = threading.Event()
+    released = []
 
-    def slow_reader(clip, delay):
-        for item in clip:
-            time.sleep(delay)
-            yield item
+    def slow_reader(clip):
+        yield clip[0]
+        released.append(fast_done.wait(timeout=120.0))
+        yield from clip[1:]
 
-    got, on_out = _collect(2)
+    got, collect = _collect(2)
+
+    def on_out(i, px, ts):
+        collect(i, px, ts)
+        if i == 0 and len(got[0]) == n_frames:
+            fast_done.set()
+
     stats = multistream.stream_multi(
-        _serving_filter(), [iter(clips[0]), slow_reader(clips[1], 0.3)], on_output=on_out,
+        _serving_filter(), [iter(clips[0]), slow_reader(clips[1])], on_output=on_out,
         slow_stream_timeout=0.05, inflight=0, queue_depth=1, device="cpu")
+    assert released == [True], "the fast stream's last output never arrived while the slow one waited"
     assert stats.frames_in == stats.frames_out == 2 * n_frames
     assert len(got[0]) == len(got[1]) == n_frames
     assert stats.stalls > 0
     for i in (0, 1):
         ts = [t for (_, _, t) in got[i]]
         assert ts == sorted(ts) == _f32_times(n_frames)
-    assert got[1][-1][0] - got[0][-1][0] > 0.25
+    assert got[1][-1][0] > got[0][-1][0]
 
 
 def test_stream_multi_uneven_stream_lengths():

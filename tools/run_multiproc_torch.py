@@ -5,8 +5,9 @@ Spawns TWO worker processes that join one process group through
 ``torch.distributed`` (gloo, a ``file://`` rendezvous in a temporary
 directory: no network, no port), lays a (4, 2) global ("stream", "tile")
 mesh over their local devices rank-major (four each), and runs
-``MultiHostStreamFilter`` in each: a worker feeds, steps and fetches only
-its own two streams.  Then one process runs the same two ranks' parts in
+``MultiHostStreamFilter`` in each, through its `jit_step` (a CUDA graph a
+tick on the card): a worker feeds, steps and fetches only its own two
+streams.  Then one process runs the same two ranks' parts in
 turn, and every stream's output of every step must be BIT-EQUAL.
 
 The reference of equality is one process running both parts, not one
@@ -87,13 +88,14 @@ def _run(mesh, device: str, rank: int) -> dict:
     local = mhf.local_streams()
     assert len(local) == N_STREAMS // N_PROC, local  # rank-major row ownership
     state = mhf.init(lt.FrameSpec(*SIZE, 1, lt.PixelFormat.GRAY), seed=SEED)
+    step = mhf.jit_step()
     outs = {}
     for t in range(STEPS):
         pix = torch.from_numpy(np.stack([_make_frame_np(s, t) for s in local])).to(device)
         frames = lt.Frame(pixels=pix, timestamp=torch.full((len(local),), t / 30.0, device=device),
                           valid=torch.ones(len(local), dtype=torch.bool, device=device),
                           format=lt.PixelFormat.GRAY)
-        state, out = mhf.step(state, mhf.put_frames(frames))
+        state, out = step(state, mhf.put_frames(frames))
         for k, arr in zip(local, mhf.fetch(out)):
             outs[f"s{k}_t{t}"] = arr
     return outs
