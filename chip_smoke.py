@@ -20,6 +20,14 @@ scaler to 4K (`CompositeFilter` of it and `ScalingFilter`), solo and over
 (`presets.stabilization_preset(model="field")`, a 16x16 mesh), solo, with
 the warp kernel checked on its dense sample map, and over 8 streams; and
 the multi-stream driver `stream_multi` over 8 in-memory 1080p BGR readers.
+Then the serving tools (tools/bench_*_torch.py, called in-process) at 8 x
+1080p: the loopback (a slow stream's stall bubbles and an early-EOF
+stream's drain ticks through the tick's graph), a soak of back-to-back
+sessions (no frame lost, no deadlock, host and device memory bounded),
+`stream_multi` end to end against 480 frames/s with the transfer floor,
+stream scaling at S = 1, 2, 4, 8 against 0.8 efficiency, and `stream()`'s
+latency at a paced 60 fps, identity and flagship, with and without the
+in-flight window.
 Then the enhancement filters: the warp at four planes (colour + alpha,
 solo and over 8 streams) against its plain version; the 4K full chain
 (the mesh stabilizer, `DeblockingFilter` and `CASFilter` over a shaky
@@ -35,8 +43,9 @@ run, then with per-filter profiling, the frame-time HUD and a
 `DeviceTrace`; `LensCorrectionFilter` alone in EASU and bilinear mode (K1
 on its undistort map against plain, at three and four planes, beside
 F.grid_sample); `process_clip` bit-equal to the frame loop; the ingest
-codecs against the CPU codecs and the native host library; a snapshot
-resumed bit-equal; and a chessboard calibration of a known camera.
+codecs against the CPU codecs and the native host library; a flagship
+and a mesh snapshot each resumed bit-equal; and a chessboard calibration
+of a known camera.
 Then the multi-device slice, on a mesh of the host's cards when it has
 four, else of cuda:0 repeated: the tile-sharded 4K halo remap (K1 once a
 tile, against solo K1 and each tile against plain), `process_clip_sharded`
@@ -48,7 +57,8 @@ and replayed a frame (utils/compiled.jit_step, the JAX package's
 `jax.jit(step, donate_argnums=0)`): the solo, 8-stream, chain, chain
 tick, mesh, mesh tick, 4K full chain and `vs + adb + cas` tick steps and
 the `lvk-torch` chain's step (`run_graph`: in lockstep with the op-by-op
-step, every output and correction bit-equal, the kernels' launches
+step, every output and correction bit-equal, the mesh paths' too, since
+the mesh solve sums in a fixed order, the kernels' launches
 counted at the capture and none after, then timed, then traced: each
 kernel of the path once a replay by its name in the profiler's trace),
 and `stream()`, `stream_multi`, `process_clip` and `process_clip_sharded`
@@ -65,8 +75,9 @@ launches over every path, error and times, with its bound (the larger of
 its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, the H100
 SXM's published peaks, counted from this run's shapes and maps) and the
 time of one PyTorch call computing the same function where there is one
-(F.grid_sample for the bilinear warp; none computes EASU, LK or RCAS).  Kernel times are taken behind a device
-spin, so the host's enqueue gap is not in them; the text lines give each
+(F.grid_sample for the bilinear warp; none computes EASU, LK or RCAS).
+Kernel times are taken behind a device spin, so the host's enqueue gap is
+not in them; the text lines give each
 also without the spin, as timed before.  With no CUDA device it exits
 non-zero and prints no result.  `--profile DIR` also writes
 torch.profiler tables of five steady steps of each path to DIR.
@@ -419,28 +430,6 @@ def _bit_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a != b).sum()
 
 
-def _diff_stats(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(elements whose bits differ, max |a - b|, mean |a - b|), on the card."""
-    d = (a.to(torch.float64) - b.to(torch.float64)).abs()
-    return torch.stack([_bit_diff(a, b).to(torch.float64), d.max(), d.mean()])
-
-
-# Paths whose step holds `index_add` on floats (the mesh solve's
-# scatter-add, vision/mesh_motion._scatter): its atomics sum in no fixed
-# order, so two op-by-op runs differ too, and a graph is held to the mesh
-# step's parity bound instead of bit equality: corrections within 2e-3
-# normalised units (tests/test_torch_multistream.py), output pixels within
-# a mean |difference| of 0.01 a frame (the sharded clip's rule), valid flags
-# and timestamps equal.
-UNORDERED_OP = "index_add (vision/mesh_motion._scatter)"
-MESH_CORRECTION_BOUND, MESH_PIXEL_BOUND = 2e-3, 0.01
-
-
-def _mesh_mode(stabilizer) -> bool:
-    """Does the stabilizer solve a mesh (a field other than 2x2)?"""
-    return tuple(stabilizer.settings.tracker.motion_resolution) != (2, 2)
-
-
 def _reseeded(fresh, like, seed: int = 0):
     """`fresh`'s tensors in the structure of `like`, a compiled step's
     state, its generators reseeded with `seed`: a fresh start that keeps
@@ -455,8 +444,7 @@ def _reseeded(fresh, like, seed: int = 0):
     return state
 
 
-def run_graph(name, eager_step, graph_step, init, inputs, n, per_step, views,
-              unordered: bool = False) -> dict:
+def run_graph(name, eager_step, graph_step, init, inputs, n, per_step, views) -> dict:
     """A path's compiled step (`graph_step`: `jit_step(step)` or
     `MultiStreamFilter.jit_step()`) against `eager_step` on the same n
     inputs (`inputs(t)`, a tuple), both from `init()` (seed 0), with
@@ -464,12 +452,11 @@ def run_graph(name, eager_step, graph_step, init, inputs, n, per_step, views,
 
       1. in lockstep: `views(state, out)` (output pixels, valid flags,
          timestamps, the stabilizer's correction offsets) of the graph's
-         replay bit-equal to the op-by-op step's, every frame (with
-         `unordered`, a path through UNORDERED_OP: within its bounds, and
-         a second op-by-op run beside them shows how far two op-by-op
-         runs drift apart); the first call captures, and its launches (the
-         warm-up's and the capture's) are `per_step` x (WARMUP_STEPS + 1),
-         every later graph call none (a replay runs no kernel wrapper);
+         replay bit-equal to the op-by-op step's, every frame (the mesh
+         paths too: the mesh solve sums in a fixed order); the first call
+         captures, and its launches (the warm-up's and the capture's) are
+         `per_step` x (WARMUP_STEPS + 1), every later graph call none (a
+         replay runs no kernel wrapper);
       2. timed: n replays from a fresh state (same graph, generator
          reseeded), device ms (CUDA events) and host ms a frame over the
          last `_timed(n)`, from an idle card, no kernel wrapper called;
@@ -484,19 +471,14 @@ def run_graph(name, eager_step, graph_step, init, inputs, n, per_step, views,
 
     per_step = _want(**per_step)
     eager, state = init(), init()
-    again = init() if unordered else None
     torch.cuda.synchronize()
-    stats, drift, compared = [], [], 0
+    stats, compared = [], 0
     _reset_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for t in range(n):
             args = inputs(t)
             eager, want = eager_step(eager, *args)
-            if unordered:
-                again, other = eager_step(again, *args)
-                drift.append(torch.stack([_diff_stats(a, b) for a, b in
-                                          zip(views(again, other), views(eager, want))]))
             if t == 0:
                 _reset_launches()
             state, out = graph_step(state, *args)
@@ -504,34 +486,19 @@ def run_graph(name, eager_step, graph_step, init, inputs, n, per_step, views,
                 capture = _launches()
                 _reset_launches()
             pairs = list(zip(views(state, out), views(eager, want)))
-            stats.append(torch.stack([_diff_stats(a, b) for a, b in pairs]))
+            stats.append(torch.stack([_bit_diff(a, b) for a, b in pairs]))
             compared += sum(a.numel() for a, _ in pairs)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     after = _launches()
-    stats = torch.stack(stats).cpu()  # (n, views, 3)
-    differ = stats[:, :, 0].sum(dim=0).long().tolist()
-    if unordered:
-        drift = torch.stack(drift).cpu()
-        worst = (float(stats[:, 3, 1].max()), float(stats[:, 0, 2].max()))
-        worst_eager = (float(drift[:, 3, 1].max()), float(drift[:, 0, 2].max()))
-        assert differ[1] == differ[2] == 0, f"{name} graph: valid flags or timestamps differ: {differ}"
-        assert worst[0] <= MESH_CORRECTION_BOUND and worst[1] <= MESH_PIXEL_BOUND, (
-            f"{name} graph: corrections up to {worst[0]:.3e} apart, pixels {worst[1]:.3e} a frame")
-        equal = (f"within the bounds of {UNORDERED_OP}: corrections up to {worst[0]:.3e} "
-                 f"(bound {MESH_CORRECTION_BOUND}), output pixels up to {worst[1]:.3e} mean "
-                 f"|diff| a frame (bound {MESH_PIXEL_BOUND}), {differ[0]} pixels and {differ[3]} "
-                 f"offsets not bit-equal, valid flags and timestamps equal; two op-by-op runs "
-                 f"{worst_eager[0]:.3e} / {worst_eager[1]:.3e} apart")
-    else:
-        assert not any(differ), f"{name} graph: elements differing from op by op per view: {differ}"
-        equal = "bit-equal to op by op"
+    differ = torch.stack(stats).sum(dim=0).tolist()  # per view
+    assert not any(differ), f"{name} graph: elements differing from op by op per view: {differ}"
     want_capture = {k: v * (WARMUP_STEPS + 1) for k, v in per_step.items()}
     assert capture == want_capture, f"{name} graph: launches at capture {capture}, want {want_capture}"
-    want_after = {k: v * (n - 1) * (2 if unordered else 1) for k, v in per_step.items()}
+    want_after = {k: v * (n - 1) for k, v in per_step.items()}
     assert after == want_after, (
         f"{name} graph: launches after the capture {after}, want the op-by-op steps' {want_after}")
-    del eager, want, again
+    del eager, want
 
     state = _reseeded(init(), state)
     torch.cuda.synchronize()
@@ -573,8 +540,9 @@ def run_graph(name, eager_step, graph_step, init, inputs, n, per_step, views,
            "kernels_per_step": len(events) / GRAPH_TRACE_STEPS,
            "busy_ms": busy / GRAPH_TRACE_STEPS / 1e3, "idle": 1.0 - busy / span,
            "launch_ms": statistics.mean(launch_us) / 1e3 if launch_us else float("nan")}
-    print(f"{name} graph: {n} frames replayed {equal} ({compared} elements of outputs and "
-          f"corrections), launches at capture {capture}; {gpu_ms:.4f} ms/frame on the device, "
+    print(f"{name} graph: {n} frames replayed bit-equal to op by op ({compared} elements of "
+          f"outputs and corrections), launches at capture {capture}; {gpu_ms:.4f} ms/frame on "
+          f"the device, "
           f"{wall_ms:.4f} ms/frame host wall clock (last {timed}); a replay's trace: "
           f"{rep['kernels_per_step']:.1f} kernels, {rep['busy_ms']:.4f} ms busy, "
           f"{100.0 * rep['idle']:.1f}% of the traced span idle, cudaGraphLaunch "
@@ -1155,8 +1123,7 @@ def run_solo(name, filt, dev, rng, profile_dir: str | None, graph: bool = True) 
         rep["graph"] = run_graph(
             name, filt.step, jit_step(filt.step), lambda: filt.init(spec, device=dev),
             lambda t: (frames[t],), n, {"warp": 1, "lk_track": 1},
-            lambda st, out: [out.pixels, out.valid, out.timestamp, st.correction.offsets],
-            unordered=_mesh_mode(filt))
+            lambda st, out: [out.pixels, out.valid, out.timestamp, st.correction.offsets])
     return rep
 
 
@@ -1266,7 +1233,6 @@ def run_streams(name, filt, dev, poses, clips, n, want, profile_dir: str | None,
     out_spec = filt.output_spec(spec)
     live = torch.ones(STREAMS, dtype=torch.bool, device=dev)
     stab = (lambda st: st[0]) if isinstance(filt, lvk.CompositeFilter) else (lambda st: st)
-    stab_filter = filt.filters[0] if isinstance(filt, lvk.CompositeFilter) else filt
 
     def frame(t):
         return lvk.Frame(pixels=clips[:, t].to(torch.float32) * (1.0 / 255.0),
@@ -1326,8 +1292,7 @@ def run_streams(name, filt, dev, poses, clips, n, want, profile_dir: str | None,
         rep["graph"] = run_graph(
             name, multi.step, multi.jit_step(), lambda: multi.init(spec, device=dev),
             lambda t: (frame(t),), n, {k: v // n for k, v in want.items()},
-            lambda st, out: [out.pixels, out.valid, out.timestamp, stab(st).correction.offsets],
-            unordered=_mesh_mode(stab_filter))
+            lambda st, out: [out.pixels, out.valid, out.timestamp, stab(st).correction.offsets])
     return rep
 
 
@@ -1437,6 +1402,112 @@ def run_stream_multi(dev, clips) -> dict:
     del rep["digests"], eager["digests"]
     rep["eager"] = eager
     return rep
+
+
+# The serving tools (tools/bench_*_torch.py) at 8 x 1080p.
+LOOPBACK_FRAMES = 24  # frames a stream of the loopback
+SOAK_FRAMES, SOAK_SECONDS = 30, 20.0  # frames a stream a session; the soak's least length
+SCALING_STREAMS = (1, 2, 4, 8)
+SCALING_TICKS = 30
+LATENCY_FRAMES, LATENCY_WARMUP, LATENCY_FPS = 120, 60, 60.0
+
+
+def _serving_tools():
+    """The tools' modules (tools/ is not a package)."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import bench_latency_torch
+    import bench_multistream_torch
+    import bench_scaling_torch
+
+    return bench_multistream_torch, bench_scaling_torch, bench_latency_torch
+
+
+def run_serving_tools(dev, clips) -> dict:
+    """The serving tools in-process at full width, the flagship filter:
+
+      * the loopback (`bench_multistream_torch.loopback`): STREAMS 1080p
+        noise readers, stream 0 slow, stream 1 ending at half the clip, so
+        stall bubbles and drain-while-others-live ticks run through the
+        tick's graph; it asserts stalls > 0 and the fast streams complete;
+      * the soak (`soak`): sessions of STREAMS x SOAK_FRAMES for at least
+        SOAK_SECONDS, at least 3, rotating the slow and the early-EOF
+        stream; no lost frame, no deadlock, steady pacing, resident and
+        reserved memory bounded, one graph a session;
+      * end to end (`end_to_end`): STREAMS readers of the clips' N_FRAMES
+        u8 BGR frames, aggregate frames/s against 480, and the transfer
+        floor;
+      * scaling (`bench_scaling_torch.scaling`): the tick graph for S in
+        SCALING_STREAMS, efficiency t(1) S / t(S) against 0.8;
+      * latency (`bench_latency_torch.latency`): `stream()` fed at
+        LATENCY_FPS, the identity pipeline and the flagship, LATENCY_FRAMES
+        after LATENCY_WARMUP, with the default in-flight window of 3 (p99
+        against 66.7 ms) and with none (each output waited for at once:
+        p99 against one frame period, 16.7 ms).
+
+    Each part's rows are printed; a failed gate raises.  Every stream_multi
+    session, scaling tick and `stream()` call captures one graph, whose
+    warm-up and capture launch each kernel of its step WARMUP_STEPS + 1
+    times and whose replays none: the launches of each part are held to
+    that count."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.utils.compiled import WARMUP_STEPS
+
+    bm, bs, bl = _serving_tools()
+    filt, size, per = lvk.flagship_filter(), (H, W), WARMUP_STEPS + 1
+    solo, multi = _want(), _want()
+
+    def counted(name, fn, graphs, batched: bool = True):
+        """fn()'s result; its launches, `graphs(result)` captures' worth,
+        added to the solo or the batched tally."""
+        _reset_launches()
+        out = fn()
+        got, k = _launches(), graphs(out) * per
+        want = _want(warp_batched=k, lk_track=k) if batched else _want(warp=k, lk_track=k)
+        assert got == want, f"serving {name}: kernel launches {got}, want {want}"
+        tally = multi if batched else solo
+        for key, v in got.items():
+            tally[key] += v
+        return out
+
+    def show(name, row):
+        print(f"serving {name}: {json.dumps(row)}", flush=True)
+
+    t0 = time.perf_counter()
+    # Each stream_multi call captures a graph: the loopback's and the
+    # soak's two warm-up runs and their own runs, the end to end's one.
+    lb = counted("loopback", lambda: bm.loopback(filt, STREAMS, size, LOOPBACK_FRAMES, dev),
+                 lambda r: 3)
+    show("loopback", lb)
+    sk = counted("soak", lambda: bm.soak(filt, STREAMS, size, SOAK_FRAMES, SOAK_SECONDS, dev),
+                 lambda r: 2 + r["sessions"])
+    show("soak", sk)
+    readers = [_bgr_reader_frames(clips[s]) for s in range(STREAMS)]
+    e2e = counted("end to end", lambda: bm.end_to_end(filt, readers, dev), lambda r: 1)
+    del readers
+    show("end to end", e2e)
+    scaling = counted("scaling", lambda: list(bs.scaling(filt, list(SCALING_STREAMS), size, dev,
+                                                           SCALING_TICKS)),
+                      lambda r: len(r))
+    assert [r["streams"] for r in scaling] == list(SCALING_STREAMS), scaling
+    for row in scaling:
+        assert math.isfinite(row["ms_per_step"]) and row["ms_per_step"] > 0, row
+        show(f"scaling S={row['streams']}", row)
+    # The flagship's stream() and the graph of its per-frame program, for
+    # each window.
+    lat = {}
+    for inflight in (3, 0):
+        lat[inflight] = counted(
+            f"latency, in flight {inflight}",
+            lambda: bl.latency(filt, size, LATENCY_FRAMES, LATENCY_FPS, LATENCY_WARMUP, inflight, dev),
+            lambda r: 2, batched=False)
+        for row in lat[inflight]:
+            show(f"{row['config']}, in flight {inflight}", row)
+    wall = time.perf_counter() - t0
+    print(f"serving tools: {wall:.1f} s; launches, solo {solo}, batched {multi}", flush=True)
+    return {"loopback": lb, "soak": sk, "e2e": e2e, "scaling": scaling, "latency": lat,
+            "solo_launches": solo, "multi_launches": multi, "wall_s": wall}
 
 
 def run_chain(dev, rng, profile_dir: str | None) -> dict:
@@ -1638,8 +1709,7 @@ def run_full_chain(dev, rng, profile_dir: str | None) -> dict:
     del state
     graph = run_graph("full_chain", filt.step, jit_step(filt.step), lambda: filt.init(spec, device=dev),
                       lambda t: (frame(t),), n, {"warp": 1, "lk_track": 1},
-                      lambda st, out: [out.pixels, out.valid, out.timestamp, st[0].correction.offsets],
-                      unordered=True)
+                      lambda st, out: [out.pixels, out.valid, out.timestamp, st[0].correction.offsets])
 
     img_u8 = clip[-1].contiguous()
     used, over = _paths(lambda c: warp_kernel.warp(img_u8, smap, block_paths=c), dev)
@@ -2468,13 +2538,17 @@ def _wall_ms(fn, runs: int = 5) -> float:
 
 
 def run_checkpoint(dev, clip, tmp) -> dict:
-    """The flagship state after 30 of the clip's 60 frames saved with its
-    settings fingerprint, loaded into a fresh init of another seed, and
-    both run over the last 30 frames: every output bit-equal."""
+    """The flagship's state and the mesh stabilizer's
+    (`stabilization_preset(model="field")`), each after 30 of the clip's 60
+    frames, saved with its settings fingerprint, loaded into a fresh init
+    of another seed, and both run over the last 30 frames: every output
+    and correction bit-equal (the mesh solve sums in a fixed order, so a
+    mesh run repeats bit for bit too)."""
     import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.presets import stabilization_preset
     from livevisionkit_tpu_torch.runtime import checkpoint
 
-    filt, fmt = lvk.flagship_filter(), lvk.PixelFormat.YUV
+    fmt = lvk.PixelFormat.YUV
     n, half = clip.shape[0], clip.shape[0] // 2
     stamps = torch.arange(n, dtype=torch.float32, device=dev) / 30.0
     live = torch.ones((), dtype=torch.bool, device=dev)
@@ -2484,32 +2558,39 @@ def run_checkpoint(dev, clip, tmp) -> dict:
                          format=fmt)
 
     spec = lvk.FrameSpec(H, W, 3, fmt)
-    state = filt.init(spec, device=dev, seed=0)
-    for t in range(half):
-        state, _ = filt.step(state, frame(t))
-    path = os.path.join(tmp, "snapshot.npz")
-    t0 = time.perf_counter()
-    checkpoint.save_state(path, state, filt=filt)
-    t1 = time.perf_counter()
-    restored = checkpoint.load_state(path, filt.init(spec, device=dev, seed=1), filt=filt)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    size_mb = os.path.getsize(path) / 2**20
-    os.remove(path)
-    bad, valid = [], 0
-    for t in range(half, n):
-        state, a = filt.step(state, frame(t))
-        restored, b = filt.step(restored, frame(t))
-        valid += int(bool(a.valid))
-        if not (torch.equal(a.pixels, b.pixels) and torch.equal(a.valid, b.valid)
-                and torch.equal(a.timestamp, b.timestamp)):
-            bad.append(t)
-    assert not bad, f"checkpoint: the resumed run differs at frames {bad}"
-    assert valid == n - half, f"checkpoint: {valid} valid outputs after the resume"
-    print(f"checkpoint: flagship state after {half} frames saved ({size_mb:.1f} MiB, "
-          f"{(t1 - t0) * 1e3:.1f} ms), loaded into a fresh init ({(t2 - t1) * 1e3:.1f} ms); "
-          f"the next {n - half} outputs bit-equal to the uninterrupted run's", flush=True)
-    return {"save_ms": (t1 - t0) * 1e3, "load_ms": (t2 - t1) * 1e3}
+    rep = {}
+    for name, filt in (("flagship", lvk.flagship_filter()),
+                       ("mesh", lvk.StabilizationFilter(settings=stabilization_preset(model="field")))):
+        state = filt.init(spec, device=dev, seed=0)
+        for t in range(half):
+            state, _ = filt.step(state, frame(t))
+        path = os.path.join(tmp, "snapshot.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_state(path, state, filt=filt)
+        t1 = time.perf_counter()
+        restored = checkpoint.load_state(path, filt.init(spec, device=dev, seed=1), filt=filt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size_mb = os.path.getsize(path) / 2**20
+        os.remove(path)
+        bad, valid = [], 0
+        for t in range(half, n):
+            state, a = filt.step(state, frame(t))
+            restored, b = filt.step(restored, frame(t))
+            valid += int(bool(a.valid))
+            if not (torch.equal(a.pixels, b.pixels) and torch.equal(a.valid, b.valid)
+                    and torch.equal(a.timestamp, b.timestamp)
+                    and torch.equal(state.correction.offsets, restored.correction.offsets)):
+                bad.append(t)
+        assert not bad, f"checkpoint ({name}): the resumed run differs at frames {bad}"
+        assert valid == n - half, f"checkpoint ({name}): {valid} valid outputs after the resume"
+        field = "x".join(map(str, state.correction.offsets.shape[-2:]))
+        print(f"checkpoint: {name} state ({field} field) after {half} frames saved ({size_mb:.1f} "
+              f"MiB, {(t1 - t0) * 1e3:.1f} ms), loaded into a fresh init ({(t2 - t1) * 1e3:.1f} "
+              f"ms); the next {n - half} outputs and corrections bit-equal to the uninterrupted "
+              f"run's", flush=True)
+        rep[name] = {"save_ms": (t1 - t0) * 1e3, "load_ms": (t2 - t1) * 1e3}
+    return rep
 
 
 def _rodrigues(rvec: np.ndarray) -> np.ndarray:
@@ -3062,6 +3143,7 @@ def main() -> int:
     me = run_mesh(dev, rng, args.profile)
     mex = run_mesh_multistream(dev, poses, clips, args.profile)
     sm = run_stream_multi(dev, clips)
+    sv = run_serving_tools(dev, clips)
     # The enhancement filters, on a generator of their own so that the
     # phases above see the data they always saw.
     rng_e = np.random.default_rng(1)
@@ -3092,14 +3174,17 @@ def main() -> int:
     # alpha): the C = 4 rows.
     # The runtime slice's counted drives: the lvk stream (K1 twice a frame),
     # lens correction alone in EASU mode and process_clip; lens correction
-    # in bilinear mode is the warp_bilinear row.
+    # in bilinear mode is the warp_bilinear row.  The serving tools' graph
+    # captures: solo (stream()) and batched (stream_multi, scaling ticks).
     paths = (sl, ms, ch, chx, me, mex, fc, adb, rt["stream"], rt["lc"]["easu"], rt["clip"])
     debug_lk = dbg["solo_launches"]["lk_track"]
     debug_lk_x8 = dbg["multi_launches"]["lk_track"]
     easu_2x = dict(easu_rep[OUT], max_abs_err=max(r["max_abs_err"] for r in easu_rep.values()))
     kernels = [
-        entry("warp", "warp.cu", "warp.py:312", launched("warp", *paths), warp_rep["easu"]),
-        entry("warp_batched", "warp.cu", "warp.py:829", launched("warp_batched", *paths),
+        entry("warp", "warp.cu", "warp.py:312", launched("warp", *paths) + sv["solo_launches"]["warp"],
+              warp_rep["easu"]),
+        entry("warp_batched", "warp.cu", "warp.py:829",
+              launched("warp_batched", *paths) + sv["multi_launches"]["warp_batched"],
               warp_b_rep["easu"]),
         entry("warp_c4", "warp.cu", "warp.py:312", dbg["solo_launches"]["warp"], k1_c4["flagship"]),
         entry("warp_batched_c4", "warp.cu", "warp.py:829", dbg["multi_launches"]["warp_batched"],
@@ -3107,10 +3192,10 @@ def main() -> int:
         entry("warp_bilinear", "warp.cu", "warp.py:81", rt["lc"]["bilinear"]["launches"]["warp"],
               rt["lc"]["bilinear"], library_ms=rt["lc"]["bilinear"]["library_ms"]),
         entry("lk_track", "lk.cu", "lk.py:255",
-              launched("lk_track", sl, ch, me, fc, rt["stream"], rt["clip"]) + debug_lk,
-              lk_rep["lk_track"]),
-        entry("lk_track_x8", "lk.cu", "lk.py:255", launched("lk_track", ms, chx, mex, adb) + debug_lk_x8,
-              lk_b_rep),
+              launched("lk_track", sl, ch, me, fc, rt["stream"], rt["clip"]) + debug_lk
+              + sv["solo_launches"]["lk_track"], lk_rep["lk_track"]),
+        entry("lk_track_x8", "lk.cu", "lk.py:255", launched("lk_track", ms, chx, mex, adb) + debug_lk_x8
+              + sv["multi_launches"]["lk_track"], lk_b_rep),
         # K4 is K3's n_levels = 1 call.
         entry("lk_level", "lk.cu", "lk.py:201", launched("lk_level", *paths), lk_rep["lk_level"]),
         entry("easu_scale", "easu_scale.cu", "easu_scale.py:264",
@@ -3132,7 +3217,21 @@ def main() -> int:
           f" | {STREAMS}-stream chain tick {chx['gpu_ms']:.4f} / {chx['wall_ms']:.4f}"
           f" | mesh {me['gpu_ms']:.4f} / {me['wall_ms']:.4f}"
           f" | {STREAMS}-stream mesh tick {mex['gpu_ms']:.4f} / {mex['wall_ms']:.4f}"
-          f" | stream_multi {sm['fps']:.1f} frames/s | K3 x{STREAMS} {lk_b_rep['ms']:.4f} ms"
+          f" | stream_multi {sm['fps']:.1f} frames/s"
+          f" | serving: loopback {sv['loopback']['stalls']} stalls, soak {sv['soak']['sessions']} "
+          f"sessions of {STREAMS} x {SOAK_FRAMES} with no frame lost, end to end "
+          f"{sv['e2e']['steady_state_fps']:.1f} frames/s steady (target 480, transfer floor "
+          f"{sv['e2e']['transfer_floor_ms']:.2f} ms), scaling efficiency "
+          + "/".join(f"{r['scaling_efficiency']:.3f}" for r in sv["scaling"])
+          + f" at S={'/'.join(str(r['streams']) for r in sv['scaling'])} (target 0.8), paced "
+          f"{LATENCY_FPS:.0f} fps p50/p95/p99 identity "
+          + "/".join(f"{sv['latency'][3][0][k]:.2f}" for k in ("p50_ms", "p95_ms", "p99_ms"))
+          + ", flagship " + "/".join(f"{sv['latency'][3][1][k]:.2f}" for k in ("p50_ms", "p95_ms", "p99_ms"))
+          + " ms (limit 66.7), in flight 0 identity "
+          + "/".join(f"{sv['latency'][0][0][k]:.2f}" for k in ("p50_ms", "p95_ms", "p99_ms"))
+          + ", flagship " + "/".join(f"{sv['latency'][0][1][k]:.2f}" for k in ("p50_ms", "p95_ms", "p99_ms"))
+          + " ms (limit 16.7)"
+          + f" | K3 x{STREAMS} {lk_b_rep['ms']:.4f} ms"
           f" | K5 x{STREAMS} {easu_b_rep['ms']:.4f} ms | K6 x{STREAMS} {rcas_b_rep['ms']:.4f} ms"
           f" | 4K full chain {fc['gpu_ms']:.4f} / {fc['wall_ms']:.4f}"
           f" | {STREAMS}-stream vs+adb+cas tick {adb['gpu_ms']:.4f} / {adb['wall_ms']:.4f}"

@@ -2,14 +2,14 @@
 livevisionkit_tpu/parallel/distributed_solve.py).
 
 The feature constraints split over the devices of a mesh axis.  Each
-device builds its own A_i^T W_i A_i x (a bilinear gather and a 4-tap
-`index_add` scatter over ITS features), and one sum gathered on the first
-device per matvec (the JAX package's `psum`), one for the right-hand side
-and one for the temporal diagonal assemble the operator.  The mesh unknowns
-(2 x Hm x Wm floats) are tiny: the CG runs on the first device, and only
-the reduced (2, Hm, Wm) partials travel, never the features.  The solve is
-vision/mesh_motion.solve, the same code as the single-device `estimate`;
-only the order of the feature sums differs.
+device builds its features' dense operator A_i and, each IRLS round, its
+normal matrix A_i^T W_i A_i and right-hand side A_i^T W_i d_i; one sum of
+each, gathered on the first device (the JAX package's `psum`, here in a
+fixed order), assembles the system.  The mesh unknowns (2 x Hm x Wm
+floats) are tiny: the CG runs on the first device, and only the reduced
+(nodes, nodes) and (2, Hm, Wm) partials travel, never the features.
+The solve is vision/mesh_motion.solve, the same code as the
+single-device `estimate`; only the order of the feature sums differs.
 """
 
 from __future__ import annotations

@@ -61,6 +61,7 @@ class MultiStreamStats:
     stalls: int = 0  # bubbles injected for slow (not ended) streams
     batch_time: Stopwatch = field(default_factory=Stopwatch)
     per_stream_out: list = field(default_factory=list)
+    graphs: int = 0  # CUDA graphs captured (0 op by op and on the CPU)
 
     @property
     def fps_aggregate(self) -> float:
@@ -268,4 +269,5 @@ def stream_multi(
             w.join(timeout=30)
     if writer_exc:
         raise writer_exc[0]
+    stats.graphs = compiled.n_graphs if compiled is not None else 0
     return stats

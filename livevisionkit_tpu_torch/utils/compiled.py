@@ -44,6 +44,7 @@ that mode does not see, fails the capture).
 from __future__ import annotations
 
 import contextlib
+import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Iterator
 
@@ -53,6 +54,20 @@ import torch.utils._pytree as pytree
 # Op-by-op steps run before each capture, on copies of the state: the
 # first with first-use work allowed, the second checked for syncs.
 WARMUP_STEPS = 2
+
+# One capture stream per device for every compiled step of the process,
+# and one capture at a time.  cuBLAS keeps a workspace for each stream it
+# has run on, never freed: a new stream per compiled step grew the
+# reserved device memory by ~64 MiB for every `stream_multi` session
+# (each builds its own step).
+_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+_CAPTURE_LOCK = threading.RLock()
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    if dev not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(device=dev)
+    return _CAPTURE_STREAMS[dev]
 
 
 @contextlib.contextmanager
@@ -153,7 +168,6 @@ class CompiledStep:
         self.fn = fn
         self._graphs: dict[tuple, _Graph] = {}
         self._pool = None
-        self._streams: dict[torch.device, torch.cuda.Stream] = {}
 
     @property
     def n_graphs(self) -> int:
@@ -184,18 +198,13 @@ class CompiledStep:
             return None
         return pytree.tree_unflatten(entry.static, spec)[1]
 
-    def _stream(self, dev: torch.device) -> torch.cuda.Stream:
-        if dev not in self._streams:
-            self._streams[dev] = torch.cuda.Stream(device=dev)
-        return self._streams[dev]
-
     def _capture(self, leaves: list, spec: pytree.TreeSpec, dev: torch.device) -> _Graph:
         state_leaves, state_spec = pytree.tree_flatten(pytree.tree_unflatten(leaves, spec)[0])
         n_state = len(state_leaves)
         gens = generators(leaves, spec)
-        with torch.cuda.device(dev):
+        with _CAPTURE_LOCK, torch.cuda.device(dev):
             static = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
-            stream = self._stream(dev)
+            stream = _capture_stream(dev)
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
                 saved = [g.get_state() for g in gens]

@@ -16,6 +16,7 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+import statistics
 import time
 from collections import deque
 
@@ -57,6 +58,11 @@ class Stopwatch:
 
     def average(self) -> float:
         return sum(self._times) / len(self._times) if self._times else 0.0
+
+    def median(self) -> float:
+        """The median interval: the steady pace, past a first interval
+        that paid a capture or a compile (0 before any sample)."""
+        return statistics.median(self._times) if self._times else 0.0
 
     def deviation(self) -> float:
         if len(self._times) < 2:

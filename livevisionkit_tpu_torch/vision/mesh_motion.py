@@ -5,28 +5,36 @@ Vision/FrameTracker.cpp:200-321, estimate_local_motions).
 A sparse least-squares fit of an (Hm, Wm) mesh to the matched features:
 bilinear feature constraints, first-difference rigidity constraints, a
 temporal pull toward the previous frame's local mesh and a weak pull
-toward the global (homography) fit.  The system is never materialized:
-conjugate gradient runs on the normal equations with a matrix-free
-operator,
+toward the global (homography) fit, solved by conjugate gradient on the
+normal equations:
 
-  * feature term: bilinear sampling of the mesh at the tracked points (a
-    gather, `_sample`) and its adjoint, a 4-tap scatter-add (`_scatter`,
-    `index_add`);
+  * feature term: A, the bilinear sampling of the mesh at the tracked
+    points, as a dense (N, nodes) matrix built once per solve
+    (`_operator`, four nonzeros a row), and its normal matrix A^T W A
+    (`_normal`) once per IRLS round;
   * rigidity term: first-difference stencils along both mesh axes and their
-    adjoints;
+    adjoints, as a (nodes, nodes) matrix built once per solve;
   * temporal and global terms: diagonal.
+
+The terms' sum is one (nodes, nodes) matrix a round, so a CG iteration
+applies the whole operator with one matrix product.
+
+The JAX package applies A by a gather and A^T by `segment_sum`, matrix
+free; the products here sum each node's terms in a fixed order as that
+does (an `index_add` would add with atomics on the card, in no fixed
+order), so two solves on the same inputs, op by op or replayed as a CUDA
+graph, agree bit for bit.  A card solve agrees with the CPU's within
+rounding.
 
 Outliers are down-weighted by IRLS rounds with a truncated quadratic.  The
 JAX package's `fori_loop` is a Python loop over the static
 `cg_iterations`, and every data-dependent choice is a `torch.where`: no
 early exit on the residual and no Python branch on a tensor, so the solve
 never waits for the device, and it batches under `torch.func.vmap` (every
-op here has a batching rule).  On the card `index_add` sums in no fixed
-order, so a card solve agrees with the CPU's within rounding, not bit for
-bit.  The mesh is solved in detection-frame pixels and returned
-normalized.  `solve` is the same fit over features split into shards on
-several devices (parallel/distributed_solve.py); `estimate` is its one
-shard.
+op here has a batching rule).  The mesh is solved in detection-frame
+pixels and returned normalized.  `solve` is the same fit over features
+split into shards on several devices (parallel/distributed_solve.py);
+`estimate` is its one shard.
 """
 
 from __future__ import annotations
@@ -61,11 +69,24 @@ def _sample(mesh: torch.Tensor, idx: torch.Tensor, w4: torch.Tensor) -> torch.Te
     return torch.einsum("cnk,nk->nc", vals, w4)
 
 
-def _scatter(res: torch.Tensor, idx: torch.Tensor, w4: torch.Tensor, nodes: int) -> torch.Tensor:
-    """A^T r: scatter (N, 2) residuals back to (2, nodes)."""
-    contrib = (res[:, :, None] * w4[:, None, :]).transpose(0, 1).reshape(2, -1)  # (2, N*4)
-    zero = torch.zeros((2, nodes), dtype=res.dtype, device=res.device)
-    return zero.index_add(1, idx.reshape(-1), contrib)
+def _operator(idx: torch.Tensor, w4: torch.Tensor, nodes: int) -> torch.Tensor:
+    """A as a dense (N, nodes) matrix: row i holds feature i's four
+    bilinear weights at its four (distinct) nodes, so A x = `_sample`."""
+    one_hot = (idx[:, :, None] == torch.arange(nodes, device=idx.device)).to(w4.dtype)  # (N, 4, nodes)
+    return (w4[:, :, None] * one_hot).sum(dim=1)
+
+
+def _scatter(res: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """A^T r: scatter (N, 2) residuals back to (2, nodes) (`a` the
+    `_operator`)."""
+    return res.transpose(0, 1) @ a
+
+
+def _normal(a: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
+    """The feature normal matrix A^T diag(wf) A, (nodes, nodes).  Its
+    diagonal is each node's support, sum_i wf_i w4_ik^2 (a feature's four
+    nodes are distinct)."""
+    return a.transpose(0, 1) @ (wf[:, None] * a)
 
 
 def _diff_h(m):  # (2, Hm, Wm) -> (2, Hm, Wm-1)
@@ -127,11 +148,10 @@ def solve(
     prev_weight_scale: torch.Tensor | float = 1.0,
 ) -> tuple[WarpField, torch.Tensor, list[torch.Tensor]]:
     """`estimate` over features split into shards, (src, dst, weights) each
-    on its own device: every feature sum (the operator's A^T W A x, the
-    right-hand side, the temporal diagonal, the residual mean) is a sum of
-    per-shard partials gathered on the device of `global_fit`, where the CG
-    runs.  Returns the field, each shard's inliers on its device, and the
-    mean residual."""
+    on its own device: every feature sum (the normal matrix A^T W A, the
+    right-hand side, the residual mean) is a sum of per-shard partials
+    gathered on the device of `global_fit`, where the CG runs.  Returns
+    the field, each shard's inliers on its device, and the mean residual."""
     hm, wm = global_fit.field_shape
     nodes = hm * wm
     dev = global_fit.offsets.device
@@ -141,7 +161,7 @@ def solve(
         idx, w4 = _bilinear_weights(dst, (hm, wm), size)
         # Observed backward displacement (dy, dx) in px.
         d_obs = torch.stack([src[:, 1] - dst[:, 1], src[:, 0] - dst[:, 0]], dim=-1)
-        feats.append((idx, w4, d_obs, weights))
+        feats.append((idx, w4, d_obs, weights, _operator(idx, w4, nodes)))
 
     x_glob = _to_px(global_fit.offsets, size)  # solve in px units
     lam_g = settings.global_weight
@@ -157,33 +177,37 @@ def solve(
         x_tgt = x_glob + _to_px(prev_local.offsets, size)
         x0 = torch.where(lam_t > 0, x_tgt, x_glob)
 
-    def temporal_diag(wfs):
+    def temporal_diag(normal):
         """Per-node temporal weight lam_t / (1 + (s / s0)^2), s the node's
         feature support (the diagonal of the feature normal matrix)."""
-        s = _psum([torch.zeros(nodes, dtype=torch.float32, device=idx.device).index_add(
-            0, idx.reshape(-1), (wf[:, None] * w4 * w4).reshape(-1))
-            for (idx, w4, _, _), wf in zip(feats, wfs)], dev).reshape(1, hm, wm)
+        s = torch.diagonal(normal).reshape(1, hm, wm)
         return lam_t / (1.0 + (s / settings.temporal_support_scale) ** 2)
 
-    def normal_op(x, wfs, lam_tn):
-        """A^T W A x of the stacked system (feature, rigidity, temporal,
-        global)."""
-        feat = _psum([_scatter(_sample(x.to(idx.device), idx, w4) * wf[:, None], idx, w4, nodes)
-                      for (idx, w4, _, _), wf in zip(feats, wfs)], dev).reshape(2, hm, wm)
-        rig = lam_r * (_diff_h_t(_diff_h(x)) + _diff_v_t(_diff_v(x)))
-        return feat + rig + lam_tn * x + lam_g * x
+    # The rigidity term's matrix D_h^T D_h + D_v^T D_v: its stencils
+    # applied to each node's unit field (row j is the image of node j).
+    eye = torch.eye(nodes, dtype=torch.float32, device=dev).reshape(nodes, hm, wm)
+    rigidity = (_diff_h_t(_diff_h(eye)) + _diff_v_t(_diff_v(eye))).reshape(nodes, nodes)
+
+    def system(normal, lam_tn):
+        """The normal matrix of the stacked system (feature, rigidity,
+        temporal, global), (nodes, nodes): a CG iteration applies it with
+        one product."""
+        return normal + lam_r * rigidity + torch.diag_embed((lam_tn + lam_g).reshape(nodes))
+
+    def normal_op(x, k):
+        return (x.reshape(2, nodes) @ k).reshape(2, hm, wm)
 
     def rhs(wfs, lam_tn):
-        feat = _psum([_scatter(d_obs * wf[:, None], idx, w4, nodes)
-                      for (idx, w4, d_obs, _), wf in zip(feats, wfs)], dev).reshape(2, hm, wm)
+        feat = _psum([_scatter(d_obs * wf[:, None], a)
+                      for (_, _, d_obs, _, a), wf in zip(feats, wfs)], dev).reshape(2, hm, wm)
         return feat + lam_tn * x_tgt + lam_g * x_glob
 
-    def cg_solve(b, wfs, lam_tn, x):
-        r = b - normal_op(x, wfs, lam_tn)
+    def cg_solve(b, k, x):
+        r = b - normal_op(x, k)
         p = r
         rs = (r * r).sum()
         for _ in range(settings.cg_iterations):
-            ap = normal_op(p, wfs, lam_tn)
+            ap = normal_op(p, k)
             alpha = rs / torch.clamp((p * ap).sum(), min=1e-12)
             x = x + alpha * p
             r = r - alpha * ap
@@ -195,22 +219,23 @@ def solve(
     def err2(x):
         """Each shard's squared residuals, (N_i,) on its device."""
         out = []
-        for idx, w4, d_obs, _ in feats:
+        for idx, w4, d_obs, _, _ in feats:
             res = _sample(x.to(idx.device), idx, w4) - d_obs  # (N, 2)
             out.append((res * res).sum(dim=-1))
         return out
 
     tau2 = settings.inlier_threshold_px ** 2
     x = x0
-    wfs = [weights for _, _, _, weights in feats]
+    wfs = [weights for _, _, _, weights, _ in feats]
     for _ in range(settings.irls_rounds):
-        lam_tn = temporal_diag(wfs)
-        x = cg_solve(rhs(wfs, lam_tn), wfs, lam_tn, x)
+        normal = _psum([_normal(a, wf) for (*_, a), wf in zip(feats, wfs)], dev)
+        lam_tn = temporal_diag(normal)
+        x = cg_solve(rhs(wfs, lam_tn), system(normal, lam_tn), x)
         wfs = [weights * torch.clamp(1.0 - e2 / tau2, min=0.0)
-               for (_, _, _, weights), e2 in zip(feats, err2(x))]
+               for (_, _, _, weights, _), e2 in zip(feats, err2(x))]
 
     inliers, res_sum, n_matched = [], [], []
-    for (_, _, _, weights), e2 in zip(feats, err2(x)):
+    for (_, _, _, weights, _), e2 in zip(feats, err2(x)):
         matched = weights > 0
         inliers.append((e2 < tau2) & matched)
         res_sum.append((torch.sqrt(e2) * matched).sum())

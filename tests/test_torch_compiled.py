@@ -14,9 +14,10 @@ On the CPU a compiled step is the step itself (the tests' path), so here:
 The `cuda` tests need a card and skip without one: a graph replay
 bit-equal to the op-by-op step (the flagship at 1080p, solo and over an
 8-stream tick), the generator advancing across replays as it does op by
-op, a synchronizing step raising at capture, a new shape recapturing, and
-the buffer rules.  JAX is imported inside the one test that needs it, so
-on a machine without JAX (the card's):
+op, a synchronizing step raising at capture, a new shape recapturing, the
+buffer rules, and new compiled steps leaving the reserved memory flat.
+JAX is imported inside the one test that needs it, so on a machine
+without JAX (the card's):
 
     python -m pytest --noconftest -m cuda tests/test_torch_compiled.py
 """
@@ -459,3 +460,25 @@ def test_graph_buffer_rules_and_recapture(cuda):
     assert step.n_graphs == 2 and torch.equal(big.cpu(), torch.full((8,), 1.5))
     assert torch.equal(big_out.cpu(), torch.tensor(8.0))
     assert torch.equal(st4, x1)  # the first graph's state untouched
+
+
+@pytest.mark.cuda
+def test_new_compiled_steps_do_not_grow_reserved_memory(cuda):
+    """Compiled steps made one after another (a `stream_multi` session
+    each) capture on one stream per device: cuBLAS's workspace for that
+    stream is made once, and the reserved memory stays flat."""
+    x = torch.randn(256, 256, device=cuda)
+
+    def step(state, x):
+        return state + 1, (x @ x).sum()
+
+    reserved = []
+    for _ in range(5):
+        fn = compiled.jit_step(step)
+        fn(torch.zeros((), device=cuda), x)
+        assert fn.n_graphs == 1
+        del fn
+        torch.cuda.synchronize(cuda)
+        reserved.append(torch.cuda.memory_reserved(cuda))
+    assert len(set(reserved[1:])) == 1, reserved  # flat after the first capture
+

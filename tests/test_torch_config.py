@@ -61,3 +61,33 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_serving_tools_import_no_jax():
+    """The port's serving tools (tools/bench_*_torch.py) import, and run a
+    tiny CPU pass of each mode but the soaks, with jax, flax, the JAX
+    package and OpenCV unimportable (OpenCV is for --video alone)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import sys\n"
+        "for k in list(sys.modules):\n"
+        "    if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'livevisionkit_tpu', 'cv2'):\n"
+        "        sys.modules[k] = None\n"
+        "for k in ('jax', 'jaxlib', 'flax', 'livevisionkit_tpu', 'cv2'):\n"
+        "    sys.modules[k] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import bench_latency_torch as bl, bench_multistream_torch as bm, bench_scaling_torch as bs\n"
+        "from livevisionkit_tpu_torch.parallel import dryrun\n"
+        "f, size = dryrun.tiny_flagship(), (96, 128)\n"
+        "rows = bl.latency(f, size, frames=3, fps=0.0, warmup=2, device='cpu')\n"
+        "rows += list(bs.scaling(f, [1], size, 'cpu', ticks=1))\n"
+        "rows.append(bm.end_to_end(f, bm.shaky_clips(1, 3, size, 'cpu'), 'cpu'))\n"
+        "print(len(rows))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=repo, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == "5"

@@ -251,7 +251,7 @@ def test_sample_and_scatter_match_jax_and_are_adjoint():
     ij, wj = jmm._bilinear_weights(jnp.asarray(pts), MESH, SIZE)
     it, wt = tmm._bilinear_weights(_t(pts), MESH, SIZE)
     ax = tmm._sample(_t(x), it, wt)
-    atr = tmm._scatter(_t(r), it, wt, MESH[0] * MESH[1])
+    atr = tmm._scatter(_t(r), tmm._operator(it, wt, MESH[0] * MESH[1]))
     np.testing.assert_allclose(ax.numpy(), np.asarray(jmm._sample(jnp.asarray(x), ij, wj)), atol=1e-5)
     np.testing.assert_allclose(atr.numpy(), np.asarray(jmm._scatter(jnp.asarray(r), ij, wj, MESH[0] * MESH[1])),
                                atol=1e-5)
