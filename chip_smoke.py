@@ -28,6 +28,17 @@ sessions (no frame lost, no deadlock, host and device memory bounded),
 stream scaling at S = 1, 2, 4, 8 against 0.8 efficiency, and `stream()`'s
 latency at a paced 60 fps, identity and flagship, with and without the
 in-flight window.
+Then the bench and profiling tools: first the seven configs of the
+BASELINE.md ladder that no other phase runs (640x480 GRAY; the bilinear
+homography and mesh stabilizers at 1080p; the homography and mesh
+stabilizers at 4K, EASU and bilinear), each over a shaky clip as a graph
+bit-equal to its op-by-op step, and K1 at their shapes against plain;
+then, in-process at full width, bench_torch.py, the 14 configs of
+tools/bench_matrix_torch.py and the stage splits of
+tools/profile_{stages,tracker,enhance,serving_stages}_torch.py (the
+tracker at S = 1 and 8 and in mesh mode), each row finite, above an
+empty kernel's time and under the JAX tool's name, on a line with the
+card's name and power limit.
 Then the enhancement filters: the warp at four planes (colour + alpha,
 solo and over 8 streams) against its plain version; the 4K full chain
 (the mesh stabilizer, `DeblockingFilter` and `CASFilter` over a shaky
@@ -460,12 +471,13 @@ def run_graph(name, eager_step, graph_step, init, inputs, n, per_step, views) ->
       2. timed: n replays from a fresh state (same graph, generator
          reseeded), device ms (CUDA events) and host ms a frame over the
          last `_timed(n)`, from an idle card, no kernel wrapper called;
-      3. traced: GRAPH_TRACE_STEPS replays under torch.profiler, each
+      3. traced: GRAPH_TRACE_STEPS replays under torch.profiler (after
+         one replay of its warm-up), each
          kernel of `per_step` in the trace `per_step` times a replay (by
          its name), with the launches, busy ms and idle share a step and
          the host time of a `cudaGraphLaunch`.
     """
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from livevisionkit_tpu_torch.utils.compiled import WARMUP_STEPS
 
@@ -526,17 +538,23 @@ def run_graph(name, eager_step, graph_step, init, inputs, n, per_step, views) ->
     replayed = _launches()
     assert replayed == _want(), f"{name} graph: kernel wrappers called in replays: {replayed}"
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for t in range(GRAPH_TRACE_STEPS):
+    # The first replay under the profiler is its warm-up, run to its end
+    # before the traced window opens: a trace whose window opened with a
+    # 4K step's first replay once lacked one of its K3 kernels.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=GRAPH_TRACE_STEPS, repeat=1)) as prof:
+        for t in range(GRAPH_TRACE_STEPS + 1):
             state, out = graph_step(state, *inputs(t))
-        torch.cuda.synchronize()
+            if t in (0, GRAPH_TRACE_STEPS):
+                torch.cuda.synchronize()
+            prof.step()
     events, launch_us = _trace_events(prof)
     traced = _traced_groups(events)
     want_traced = {g: v * GRAPH_TRACE_STEPS for g, v in _kernel_groups(per_step).items()}
     assert traced == want_traced, f"{name} graph: kernels in the replays' trace {traced}, want {want_traced}"
     busy = _busy_us([(a, b) for a, b, _ in events])
     span = max(b for _, b, _ in events) - events[0][0]
-    rep = {"gpu_ms": gpu_ms, "wall_ms": wall_ms, "capture": capture, "traced": traced,
+    rep = {"gpu_ms": gpu_ms, "wall_ms": wall_ms, "capture": capture, "after": after, "traced": traced,
            "kernels_per_step": len(events) / GRAPH_TRACE_STEPS,
            "busy_ms": busy / GRAPH_TRACE_STEPS / 1e3, "idle": 1.0 - busy / span,
            "launch_ms": statistics.mean(launch_us) / 1e3 if launch_us else float("nan")}
@@ -1508,6 +1526,243 @@ def run_serving_tools(dev, clips) -> dict:
     print(f"serving tools: {wall:.1f} s; launches, solo {solo}, batched {multi}", flush=True)
     return {"loopback": lb, "soak": sk, "e2e": e2e, "scaling": scaling, "latency": lat,
             "solo_launches": solo, "multi_launches": multi, "wall_s": wall}
+
+
+# The bench and profiling tools (bench_torch.py, tools/bench_matrix_torch.py,
+# tools/profile_*_torch.py) and the ladder configs no other phase runs.
+LADDER_FRAMES = 20  # frames of a shaky clip through each new ladder config
+# The configs of tools/bench_matrix_torch.py that no other phase drives.
+NEW_LADDER = ("640x480_gray_stabilization", "1080p_homography_stabilization_bilinear",
+              "1080p_mesh_stabilization_bilinear", "4k_homography_stabilization",
+              "4k_homography_stabilization_bilinear", "4k_mesh_stabilization",
+              "4k_mesh_stabilization_bilinear")
+# Each tool's rows, under the JAX tool's names (the text before its colon).
+TOOL_ROWS = {
+    "profile_stages": ("full step", "tracker.track", "luma+detect resize", "warp.apply 1080p",
+                       "smoother", "features.detect"),
+    "profile_tracker": ("track (whole)", "pyramid.build", "optical_flow.track", "ransac.estimate",
+                        "features.detect"),
+    "profile_enhance": ("deblock.avg_pool(1/4)", "deblock.median5@270p", "deblock.up_linear(4x)",
+                        "deblock.measure(luma+pools)", "deblock.full-fused",
+                        "easu_scale 1080p->4K", "rcas@4K", "easu+rcas fused"),
+    "profile_serving_stages": ("full step (easu    )", "full step (bilinear)",
+                               f"tracker.track (S={STREAMS})", "queue quant/push/deq "),
+}
+# Kernel launches of each tool's steps, per captured graph (its warm-up
+# steps and its capture launch them; a replay calls no wrapper): a sum
+# over the graphs of the tool.
+TOOL_LAUNCHES = {
+    "bench": {"warp": 1, "lk_track": 1},
+    # 10 stabilizer configs (the 4K chain's included), the scaler.
+    "bench_matrix": {"warp": 10, "lk_track": 10, "easu_scale": 1, "rcas": 1},
+    "profile_stages": {"warp": 2, "lk_track": 2},  # full step, track; warp.apply
+    "profile_tracker": {"lk_track": 2},  # track, optical_flow.track (solo or batched)
+    "profile_enhance": {"easu_scale": 2, "rcas": 2},
+    "profile_serving_stages": {"warp_batched": 2, "lk_track": 3},
+}
+# Launches outside the graphs: profile_tracker seeds its state with two
+# tracks.
+TOOL_SEEDING = {"profile_tracker": {"lk_track": 2}}
+
+
+def _bench_tools():
+    """The tools' modules (tools/ is not a package; bench_torch.py sits at
+    the root)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    for d in (root, os.path.join(root, "tools")):
+        if d not in sys.path:
+            sys.path.insert(0, d)
+    import bench_matrix_torch
+    import bench_torch
+    import profile_enhance_torch
+    import profile_serving_stages_torch
+    import profile_stages_torch
+    import profile_tracker_torch
+
+    return (bench_torch, bench_matrix_torch, profile_stages_torch, profile_tracker_torch,
+            profile_enhance_torch, profile_serving_stages_torch)
+
+
+def run_ladder_config(dev, rng, name, filt, c, size, fmt) -> dict:
+    """LADDER_FRAMES frames of a shaky clip of `size` (its Y plane alone for
+    GRAY) through the ladder config `filt`: its step compiled (`run_graph`:
+    bit-equal to op by op, one K1 and one K3 a step, no host sync), then
+    the op-by-op run's outputs held: valid from `filt.delay`, finite, the
+    tracker ok on >= 90% of frames, output jitter below input jitter."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.utils.compiled import jit_step
+
+    n = LADDER_FRAMES
+    poses, pixels = _shaky_render(dev, rng, size, n)
+    stamps = torch.arange(n, dtype=torch.float32, device=dev) / 30.0
+    live = torch.ones((), dtype=torch.bool, device=dev)
+    frames = [lvk.Frame(pixels=pixels(t)[:c].contiguous(), timestamp=stamps[t], valid=live,
+                        format=fmt) for t in range(n)]
+    spec = lvk.FrameSpec(*size, c, fmt)
+    # First-use work (the resize weights of this size) outside the checks.
+    filt.step(filt.init(spec, device=dev), frames[0])
+    torch.cuda.synchronize()
+    kept = []
+
+    def eager_step(st, fr):
+        st, out = filt.step(st, fr)
+        kept.append((out.valid, torch.isfinite(out.pixels).all(), st.stability,
+                     st.correction.offsets))
+        return st, out
+
+    rep = run_graph(name, eager_step, jit_step(filt.step), lambda: filt.init(spec, device=dev),
+                    lambda t: (frames[t],), n, {"warp": 1, "lk_track": 1},
+                    lambda st, out: [out.pixels, out.valid, out.timestamp, st.correction.offsets])
+    valid = [bool(v) for v, _, _, _ in kept]
+    assert valid == [t >= filt.delay for t in range(n)], f"{name}: valid flags {valid}"
+    assert all(bool(f) for _, f, _, _ in kept), f"{name}: non-finite output pixels"
+    ok_frac = sum(float(s) > 0.0 for _, _, s, _ in kept[1:]) / (n - 1)
+    assert ok_frac >= 0.9, f"{name}: tracker ok on {ok_frac:.3f} < 0.9 of frames"
+    j_in, j_out = _jitter(poses, torch.stack([o for _, _, _, o in kept]).cpu(), filt.delay, size)
+    assert j_out < j_in, f"{name}: output jitter {j_out:.3f} px not below input {j_in:.3f} px"
+    print(f"{name}: {n} frames of {c}x{size[0]}x{size[1]} {fmt.name}, valid from frame "
+          f"{filt.delay}, tracker ok on {ok_frac:.3f} of frames, jitter {j_in:.3f} -> {j_out:.3f} "
+          f"px", flush=True)
+    rep["launches"] = {k: rep["capture"][k] + rep["after"][k] for k in rep["capture"]}
+    rep.update(jitter_in=j_in, jitter_out=j_out, ok_frac=ok_frac)
+    return rep
+
+
+def check_warp_ladder(dev, rng) -> dict:
+    """K1 at the shapes the new ladder configs give it, on u8 frames as the
+    stabilizer's delay queue holds them, against its plain version (f32
+    within 1e-4, u8 within 1 LSB on at most 1e-3 of pixels) under
+    check_warp's stabilization-scale similarity scaled to the frame: EASU
+    at C = 1 (GRAY) 480x640 and at 3x2160x3840, bilinear at 3x1080x1920 and
+    3x2160x3840.  No PyTorch call computes EASU or samples a u8 frame
+    (F.grid_sample takes floats): library_ms is null."""
+    import livevisionkit_tpu_torch as lvk
+    from livevisionkit_tpu_torch.ops import remap as remap_ops
+    from livevisionkit_tpu_torch.ops.cuda_kernels import warp as warp_kernel
+
+    cases = {"warp_gray": (1, (480, 640), "easu", lvk.PixelFormat.GRAY),
+             "warp_4k": (3, OUT, "easu", lvk.PixelFormat.YUV),
+             "warp_bilinear_u8": (3, (H, W), "bilinear", lvk.PixelFormat.YUV),
+             "warp_bilinear_u8_4k": (3, OUT, "bilinear", lvk.PixelFormat.YUV)}
+    report = {}
+    for name, (c, (h, w), mode, fmt) in cases.items():
+        luma = torch.from_numpy(_texture(h, w, rng)).to(dev)
+        img_f = torch.stack([luma, 0.25 + 0.5 * luma.flip(0), 0.75 - 0.5 * luma.flip(1)])[:c]
+        img_f = img_f.contiguous()
+        img_u8 = torch.clamp(img_f * 255.0 + 0.5, 0, 255).to(torch.uint8)
+        k = h / H
+        smap = _similarity(1.01, math.radians(0.5), 12.0 * k, -7.0 * k, dev).sample_map((h, w))
+        smap = smap.contiguous()
+        err_f = float((warp_kernel.warp(img_f, smap, filter_mode=mode, fmt=fmt)
+                       - remap_ops.remap_plain(img_f, smap, filter_mode=mode, fmt=fmt)).abs().max())
+        assert err_f <= 1e-4, f"{name}: f32 warp differs from plain by {err_f} > 1e-4"
+        kernel = lambda: warp_kernel.warp(img_u8, smap, filter_mode=mode, fmt=fmt)  # noqa: E731
+        plain = lambda: remap_ops.remap_plain(img_u8, smap, filter_mode=mode, fmt=fmt)  # noqa: E731
+        max_lsb, frac = _u8_diff(kernel(), plain())
+        assert max_lsb <= 1 and frac <= 1e-3, (
+            f"{name}: u8 warp max {max_lsb} LSB on {frac:.2e} of pixels (bound 1 LSB on 1e-3)")
+        ms, plain_ms = _median_ms(kernel), _median_ms(plain)
+        n_bytes = img_u8.numel() * 2 + smap.numel() * 4
+        if mode == "easu":
+            n_out, n_src = _easu_work(smap, h, w)
+            bound, side = _bound(n_bytes, _easu_ops(n_out, n_src, c))
+        else:
+            inside = (smap[0] >= 0) & (smap[0] <= h - 1) & (smap[1] >= 0) & (smap[1] <= w - 1)
+            bound, side = _bound(n_bytes, _bilinear_ops(int(inside.sum()), c))
+        print(f"K1 {name} ({mode}, u8 {c}x{h}x{w} {fmt.name}): f32 max|err| {err_f:.3e}; u8 max "
+              f"{max_lsb} LSB on {frac:.2e} of pixels; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({side}), {100.0 * bound / ms:.0f}% of it (median of {RUNS})",
+              flush=True)
+        report[name] = {"max_abs_err": max_lsb, "f32_err": err_f, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": side}
+    return report
+
+
+def run_bench_tools(dev) -> dict:
+    """The bench and profiling tools' phase, on a generator of its own:
+
+      1. the seven ladder configs no other phase runs (NEW_LADDER: 640x480
+         GRAY; the bilinear stabilizers at 1080p; the homography and mesh
+         stabilizers at 4K, EASU and bilinear), each over LADDER_FRAMES
+         frames of a shaky clip (`run_ladder_config`), then K1 at their
+         shapes against plain (`check_warp_ladder`);
+      2. the six tools in-process at full width, their defaults (60
+         replays, 3 runs a row): bench_torch, the 14 configs of
+         bench_matrix_torch, profile_stages, profile_tracker at S = 1 and
+         S = STREAMS and with the mesh preset's tracker at S = 1,
+         profile_enhance and profile_serving_stages at S = STREAMS.  Every
+         row is finite and above an empty kernel's time, every row name is
+         there, and each tool's launches are TOOL_LAUNCHES' x
+         (WARMUP_STEPS + 1) (the captures; replays launch through no
+         wrapper) and TOOL_SEEDING's.
+
+    Between configs and rows every graph and its pool is released."""
+    from livevisionkit_tpu_torch.utils.compiled import WARMUP_STEPS
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2)
+    bt, bm, ps, pt, pe, pss = _bench_tools()
+    ladder = {}
+    for name, filt, c, h, w, fmt in bm.configs():
+        if name in NEW_LADDER:
+            ladder[name] = run_ladder_config(dev, rng, name, filt, c, (h, w), fmt)
+            torch.cuda.empty_cache()
+    assert tuple(ladder) == NEW_LADDER, tuple(ladder)
+    k1 = check_warp_ladder(dev, rng)
+    t_ladder = time.perf_counter() - t0
+
+    floor = empty_kernel_ms()
+    per = WARMUP_STEPS + 1
+    launches = {}
+
+    def counted(tool, fn):
+        _reset_launches()
+        out = fn()
+        seeding = TOOL_SEEDING.get(tool, {})
+        got = _launches()
+        want = _want(**{k: v * per + seeding.get(k, 0) for k, v in TOOL_LAUNCHES[tool].items()})
+        assert got == want, f"{tool}: kernel launches {got}, want {want}"
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    size = (H, W)
+    line = counted("bench", lambda: bt.bench(size, dev))
+    rows = {"bench": [(line["metric"], line["value"])]}
+    rows["bench_matrix"] = [(r["config"], r["value"]) for r in counted(
+        "bench_matrix", lambda: list(bm.matrix(None, dev)))]
+    rows["profile_stages"] = counted("profile_stages", lambda: ps.stages(size, dev))
+    for s_, mesh in ((1, False), (STREAMS, False), (1, True)):
+        key = f"profile_tracker S={s_}" + (" mesh" if mesh else "")
+        rows[key] = counted("profile_tracker", lambda: pt.tracker(s_, size, dev, mesh))
+    rows["profile_enhance"] = counted("profile_enhance", lambda: pe.enhance(size, dev))
+    rows["profile_serving_stages"] = counted(
+        "profile_serving_stages", lambda: pss.serving_stages(STREAMS, size, dev))
+
+    want = {"bench": ("1080p_stabilization_latency",),
+            "bench_matrix": tuple(c[0] for c in bm.configs()),
+            "profile_stages": TOOL_ROWS["profile_stages"],
+            "profile_tracker S=1": TOOL_ROWS["profile_tracker"],
+            f"profile_tracker S={STREAMS}": TOOL_ROWS["profile_tracker"],
+            "profile_tracker S=1 mesh": TOOL_ROWS["profile_tracker"] + ("mesh_motion.estimate",),
+            "profile_enhance": TOOL_ROWS["profile_enhance"],
+            "profile_serving_stages": TOOL_ROWS["profile_serving_stages"]}
+    assert len(want["bench_matrix"]) == 14
+    for key, names in want.items():
+        assert tuple(n for n, _ in rows[key]) == names, f"{key}: rows {[n for n, _ in rows[key]]}"
+        bad = [(n, ms) for n, ms in rows[key] if not (math.isfinite(ms) and ms > floor)]
+        assert not bad, f"{key}: rows not finite or under the {floor:.4f} ms launch floor: {bad}"
+    wall = time.perf_counter() - t0
+    print(f"bench tools: {wall:.1f} s ({t_ladder:.1f} s of it the new ladder configs and K1); "
+          f"launches {launches}; floor {floor:.4f} ms", flush=True)
+    print(f"{_gpu_line()} | bench tools, ms: "
+          + " | ".join(f"{key}: " + ", ".join(f"{n.strip()} {ms:.4f}" for n, ms in r)
+                       for key, r in rows.items())
+          + " | new ladder configs as graphs (device / host): "
+          + ", ".join(f"{n} {r['gpu_ms']:.4f} / {r['wall_ms']:.4f}" for n, r in ladder.items()),
+          flush=True)
+    return {"ladder": ladder, "k1": k1, "rows": rows, "launches": launches, "floor_ms": floor,
+            "wall_s": wall}
 
 
 def run_chain(dev, rng, profile_dir: str | None) -> dict:
@@ -3144,6 +3399,7 @@ def main() -> int:
     mex = run_mesh_multistream(dev, poses, clips, args.profile)
     sm = run_stream_multi(dev, clips)
     sv = run_serving_tools(dev, clips)
+    bt = run_bench_tools(dev)
     # The enhancement filters, on a generator of their own so that the
     # phases above see the data they always saw.
     rng_e = np.random.default_rng(1)
@@ -3180,6 +3436,10 @@ def main() -> int:
     debug_lk = dbg["solo_launches"]["lk_track"]
     debug_lk_x8 = dbg["multi_launches"]["lk_track"]
     easu_2x = dict(easu_rep[OUT], max_abs_err=max(r["max_abs_err"] for r in easu_rep.values()))
+
+    def ladder(kernel, *configs):
+        return sum(bt["ladder"][c]["launches"][kernel] for c in configs)
+
     kernels = [
         entry("warp", "warp.cu", "warp.py:312", launched("warp", *paths) + sv["solo_launches"]["warp"],
               warp_rep["easu"]),
@@ -3193,7 +3453,7 @@ def main() -> int:
               rt["lc"]["bilinear"], library_ms=rt["lc"]["bilinear"]["library_ms"]),
         entry("lk_track", "lk.cu", "lk.py:255",
               launched("lk_track", sl, ch, me, fc, rt["stream"], rt["clip"]) + debug_lk
-              + sv["solo_launches"]["lk_track"], lk_rep["lk_track"]),
+              + sv["solo_launches"]["lk_track"] + ladder("lk_track", *NEW_LADDER), lk_rep["lk_track"]),
         entry("lk_track_x8", "lk.cu", "lk.py:255", launched("lk_track", ms, chx, mex, adb) + debug_lk_x8
               + sv["multi_launches"]["lk_track"], lk_b_rep),
         # K4 is K3's n_levels = 1 call.
@@ -3208,6 +3468,19 @@ def main() -> int:
         # K1 once per tile of remap_sharded: the dry run's 4K halo remap.
         entry("warp_tiled", "warp.cu", "warp.py:312", md["dryrun"]["launches"]["warp"],
               md["tiled"]["easu"]),
+        # K1 at the new ladder configs' shapes (run_bench_tools): GRAY at
+        # 480x640, u8 EASU at 4K, and the stabilizer's bilinear u8 warp.
+        entry("warp_gray", "warp.cu", "warp.py:312",
+              ladder("warp", "640x480_gray_stabilization"), bt["k1"]["warp_gray"]),
+        entry("warp_4k", "warp.cu", "warp.py:312",
+              ladder("warp", "4k_homography_stabilization", "4k_mesh_stabilization"),
+              bt["k1"]["warp_4k"]),
+        entry("warp_bilinear_u8", "warp.cu", "warp.py:81",
+              ladder("warp", "1080p_homography_stabilization_bilinear",
+                     "1080p_mesh_stabilization_bilinear"), bt["k1"]["warp_bilinear_u8"]),
+        entry("warp_bilinear_u8_4k", "warp.cu", "warp.py:81",
+              ladder("warp", "4k_homography_stabilization_bilinear",
+                     "4k_mesh_stabilization_bilinear"), bt["k1"]["warp_bilinear_u8_4k"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{gpu} | slice {sl['gpu_ms']:.4f} ms/frame (device), {sl['wall_ms']:.4f} ms/frame (host)"

@@ -91,3 +91,36 @@ def test_serving_tools_import_no_jax():
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().splitlines()[-1] == "5"
+
+
+def test_bench_tools_import_no_jax():
+    """The port's bench and profiling tools (bench_torch.py,
+    tools/bench_matrix_torch.py, tools/profile_*_torch.py) import, and run a
+    tiny CPU pass of each, with jax, flax, the JAX package and OpenCV
+    unimportable."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import sys\n"
+        "for k in list(sys.modules):\n"
+        "    if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'livevisionkit_tpu', 'cv2'):\n"
+        "        sys.modules[k] = None\n"
+        "for k in ('jax', 'jaxlib', 'flax', 'livevisionkit_tpu', 'cv2'):\n"
+        "    sys.modules[k] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import bench_torch, bench_matrix_torch as bmt, profile_stages_torch as ps\n"
+        "import profile_tracker_torch as pt, profile_enhance_torch as pe\n"
+        "import profile_serving_stages_torch as pss\n"
+        "size, kw = (48, 64), dict(n=1, reps=1)\n"
+        "rows = [bench_torch.bench(size, 'cpu', **kw)]\n"
+        "rows += ps.stages(size, 'cpu', **kw) + pt.tracker(1, size, 'cpu', **kw)\n"
+        "rows += pe.enhance(size, 'cpu', **kw) + pss.serving_stages(1, size, 'cpu', **kw)\n"
+        "rows += [len(bmt.configs())]\n"
+        "print(len(rows))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=repo, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == str(1 + 6 + 5 + 8 + 4 + 1)

@@ -1,6 +1,8 @@
-"""What the PyTorch port's serving tools share (tools/bench_multistream_torch.py,
-tools/bench_scaling_torch.py, tools/bench_latency_torch.py): the filter
-served at a frame size, the rows they print and append, host frames, and
+"""What the PyTorch port's serving, bench and profiling tools share
+(tools/bench_multistream_torch.py, tools/bench_scaling_torch.py,
+tools/bench_latency_torch.py, bench_torch.py, tools/bench_matrix_torch.py,
+tools/profile_*_torch.py): the filter served at a frame size, the rows
+they print and append, the card's name and power limit, host frames, and
 the process's resident memory.  Imports `torch` and the port only.
 """
 
@@ -37,18 +39,44 @@ def serving_filter(size: tuple[int, int]):
     return lt.flagship_filter() if size[0] >= 540 else dryrun.tiny_flagship()
 
 
-def emit(row: dict, json_out: str | None = None) -> dict:
-    """Print one measurement as a JSON line on stdout, and append it to
-    `json_out`, which may not be one of the JAX package's BENCH_*.jsonl
-    records."""
-    line = json.dumps(row)
-    print(line, flush=True)
-    if json_out:
-        if os.path.basename(json_out).startswith("BENCH_"):
-            raise ValueError(f"{json_out}: the BENCH_* files are the JAX package's records")
+def check_json_out(json_out: str | None) -> str | None:
+    """`json_out`, refused (ValueError) when it names one of the JAX
+    package's BENCH_* records."""
+    if json_out and os.path.basename(json_out).startswith("BENCH_"):
+        raise ValueError(f"{json_out}: the BENCH_* files are the JAX package's records")
+    return json_out
+
+
+def append(row: dict, json_out: str | None) -> None:
+    """Append one measurement as a JSON line to `json_out` (nothing when it
+    is None; `check_json_out`)."""
+    if check_json_out(json_out):
         with open(json_out, "a") as fh:
-            fh.write(line + "\n")
+            fh.write(json.dumps(row) + "\n")
+
+
+def emit(row: dict, json_out: str | None = None) -> dict:
+    """Print one measurement as a JSON line on stdout, and `append` it to
+    `json_out`."""
+    print(json.dumps(row), flush=True)
+    append(row, json_out)
     return row
+
+
+def card_line(device) -> str:
+    """What ran the measurement: on a card its name and power limit as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives
+    them (that of the device's index), else "cpu"."""
+    import subprocess
+
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    return out[dev.index or 0]
 
 
 def random_ring(size: tuple[int, int], n: int = 4) -> list:
