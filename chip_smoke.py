@@ -6,7 +6,8 @@ Builds the hand-written kernels from csrc/ (printing each one's registers,
 shared memory and spills from ptxas), holds each against its plain
 PyTorch version on the card at the shapes of the main paths (the warp
 solo and batched over 8 streams, also under maps whose blocks exceed the
-warp's shared-memory box, LK solo, over 8 streams and with one level,
+warp's shared-memory box, in EASU and bilinear mode, with each mode's
+staged and device-memory block counts, LK solo, over 8 streams and with one level,
 which is K4, the EASU upscale and RCAS solo and over 8 streams at the
 chain tick's 1080p -> 4K shapes, each batched launch bit-equal to 8 solo
 launches and to them at stream stride 0, RCAS beside a clone of its
@@ -34,11 +35,14 @@ homography and mesh stabilizers at 1080p; the homography and mesh
 stabilizers at 4K, EASU and bilinear), each over a shaky clip as a graph
 bit-equal to its op-by-op step, and K1 at their shapes against plain;
 then, in-process at full width, bench_torch.py, the 14 configs of
-tools/bench_matrix_torch.py and the stage splits of
+tools/bench_matrix_torch.py, the stage splits of
 tools/profile_{stages,tracker,enhance,serving_stages}_torch.py (the
-tracker at S = 1 and 8 and in mesh mode), each row finite, above an
+tracker at S = 1 and 8 and in mesh mode) and tools/profile_warp_torch.py
+(the warp whole, its map and its kernel, K2 at S = 1, 2, 4, 8 against S
+solo launches, EASU and bilinear, u8 and f32), each row finite, above an
 empty kernel's time and under the JAX tool's name, on a line with the
-card's name and power limit.
+card's name and power limit, and the warp.apply split into map, kernel
+and the rest.
 Then the enhancement filters: the warp at four planes (colour + alpha,
 solo and over 8 streams) against its plain version; the 4K full chain
 (the mesh stabilizer, `DeblockingFilter` and `CASFilter` over a shaky
@@ -273,10 +277,13 @@ def _similarity(scale, angle, tx, ty, dev):
 def _counters():
     """Each kernel's launch count: its wrapper and the attribute the wrapper
     adds one to where it launches (K4 is K3's one-level call, counted apart;
-    K3's stream axis is the same wrapper, counted by the path that calls it)."""
+    K3's stream axis is the same wrapper, counted by the path that calls it;
+    K2's bilinear launches are counted apart too, and are also in its
+    count)."""
     from livevisionkit_tpu_torch.ops.cuda_kernels import easu_scale, lk, rcas, warp
 
     return {"warp": (warp.warp, "launches"), "warp_batched": (warp.warp_batched, "launches"),
+            "warp_batched_bilinear": (warp.warp_batched, "launches_bilinear"),
             "lk_track": (lk.lk_track, "launches"), "lk_level": (lk.lk_track, "launches_one_level"),
             "easu_scale": (easu_scale.easu_scale, "launches"),
             "easu_scale_batched": (easu_scale.easu_scale_batched, "launches"),
@@ -538,19 +545,37 @@ def run_graph(name, eager_step, graph_step, init, inputs, n, per_step, views) ->
     replayed = _launches()
     assert replayed == _want(), f"{name} graph: kernel wrappers called in replays: {replayed}"
 
-    # The first replay under the profiler is its warm-up, run to its end
-    # before the traced window opens: a trace whose window opened with a
-    # 4K step's first replay once lacked one of its K3 kernels.
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=GRAPH_TRACE_STEPS, repeat=1)) as prof:
-        for t in range(GRAPH_TRACE_STEPS + 1):
-            state, out = graph_step(state, *inputs(t))
-            if t in (0, GRAPH_TRACE_STEPS):
-                torch.cuda.synchronize()
-            prof.step()
-    events, launch_us = _trace_events(prof)
+    def trace(state):
+        """The kernels and cudaGraphLaunch times of GRAPH_TRACE_STEPS
+        replays.  The first replay under the profiler is its warm-up, run
+        to its end before the traced window opens."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=GRAPH_TRACE_STEPS,
+                                       repeat=1)) as prof:
+            for t in range(GRAPH_TRACE_STEPS + 1):
+                state, out = graph_step(state, *inputs(t))
+                if t in (0, GRAPH_TRACE_STEPS):
+                    torch.cuda.synchronize()
+                prof.step()
+        return state, _trace_events(prof)
+
+    state, (events, launch_us) = trace(state)
     traced = _traced_groups(events)
     want_traced = {g: v * GRAPH_TRACE_STEPS for g, v in _kernel_groups(per_step).items()}
+    if traced != want_traced:
+        # The profiler can lose kernel records (on the H100 a 4K step's
+        # five traced replays once lacked one of their K3 kernels, and
+        # other traces of the same replays did not): such a trace holds
+        # fewer kernels than another trace of the same replays, which run
+        # the same kernels.  A second trace replaces it only then; a graph
+        # that lacks a kernel gives two equal traces and fails below.
+        state, (again, launch_again) = trace(state)
+        if len(again) > len(events):
+            print(f"{name} graph: the replays' trace lost {len(again) - len(events)} of "
+                  f"{len(again)} kernel records ({traced}); the second trace is checked",
+                  flush=True)
+            events, launch_us = again, launch_again
+            traced = _traced_groups(events)
     assert traced == want_traced, f"{name} graph: kernels in the replays' trace {traced}, want {want_traced}"
     busy = _busy_us([(a, b) for a, b, _ in events])
     span = max(b for _, b, _ in events) - events[0][0]
@@ -585,6 +610,9 @@ def check_warp(dev, rng) -> dict:
     assert n_out > 1000, f"the map must leave the frame somewhere ({n_out} px do)"
     used, over = _paths(lambda c: warp_kernel.warp(img_u8, smap, block_paths=c), dev)
     assert over == 0, f"{over} of {used} blocks of the stabilization map overflow the box"
+    b_used, b_over = _paths(lambda c: warp_kernel.warp(img_u8, smap, filter_mode="bilinear",
+                                                       block_paths=c), dev)
+    assert b_used > 0 and b_over == 0, f"bilinear: {b_over} of {b_used} tiles overflow the box"
     report = {}
     for mode in ("easu", "bilinear"):
         kf = warp_kernel.warp(img_f, smap, fill=0.0, filter_mode=mode)
@@ -608,7 +636,8 @@ def check_warp(dev, rng) -> dict:
         img_u8.numel() * 2 + smap.numel() * 4, _easu_ops(n_easu, n_src, 3))
     print(f"K1 warp easu: {used} blocks stage their source box, {over} gather from device "
           f"memory; bound {report['easu']['bound_ms']:.4f} ms ({report['easu']['bound_by']}, "
-          f"{n_easu} EASU outputs, {n_src} corner pixels)", flush=True)
+          f"{n_easu} EASU outputs, {n_src} corner pixels); bilinear: {b_used} tiles stage "
+          f"their source box, {b_over} gather from device memory", flush=True)
 
     # The bilinear mode's yardstick: one grid_sample call on the f32 frame.
     # Outside the frame the kernel fills where grid_sample clamps, so the
@@ -628,19 +657,23 @@ def check_warp(dev, rng) -> dict:
 
     for name, (scale, angle) in OVERFLOW_MAPS.items():
         omap = _affine_map((H, W), scale, angle, dev)
-        used, over = _paths(lambda c: warp_kernel.warp(img_u8, omap, block_paths=c), dev)
-        assert over >= used // 2, f"{name}: only {over} of {used} blocks overflow the box"
-        err_f = float((warp_kernel.warp(img_f, omap) - remap_ops.remap_plain(
-            img_f, omap, filter_mode="easu")).abs().max())
-        assert err_f <= 1e-4, f"{name}: f32 warp differs from plain by {err_f} > 1e-4"
-        max_lsb, frac = _u8_diff(warp_kernel.warp(img_u8, omap),
-                                 remap_ops.remap_plain(img_u8, omap, filter_mode="easu"))
-        assert max_lsb <= 1 and frac <= 1e-3, (
-            f"{name}: u8 warp max {max_lsb} LSB on {frac:.2e} of pixels (bound 1 LSB on 1e-3)")
-        ms = _median_ms(lambda: warp_kernel.warp(img_u8, omap))
-        print(f"K1 warp easu, {name}: {over} of {used} blocks gather from device memory; f32 "
-              f"max|err| {err_f:.3e}; u8 max {max_lsb} LSB on {frac:.2e} of pixels; kernel "
-              f"{ms:.4f} ms (u8)", flush=True)
+        for mode in ("easu", "bilinear"):
+            used, over = _paths(lambda c: warp_kernel.warp(img_u8, omap, filter_mode=mode,
+                                                           block_paths=c), dev)
+            assert over >= used // 2, (
+                f"{name}, {mode}: only {over} of {used} blocks overflow the box")
+            err_f = float((warp_kernel.warp(img_f, omap, filter_mode=mode) - remap_ops.remap_plain(
+                img_f, omap, filter_mode=mode)).abs().max())
+            assert err_f <= 1e-4, f"{name}, {mode}: f32 warp differs from plain by {err_f} > 1e-4"
+            max_lsb, frac = _u8_diff(warp_kernel.warp(img_u8, omap, filter_mode=mode),
+                                     remap_ops.remap_plain(img_u8, omap, filter_mode=mode))
+            assert max_lsb <= 1 and frac <= 1e-3, (
+                f"{name}, {mode}: u8 warp max {max_lsb} LSB on {frac:.2e} of pixels (bound 1 LSB "
+                f"on 1e-3)")
+            ms = _median_ms(lambda: warp_kernel.warp(img_u8, omap, filter_mode=mode))
+            print(f"K1 warp {mode}, {name}: {used - over} of {used} blocks stage their source "
+                  f"box, {over} gather from device memory; f32 max|err| {err_f:.3e}; u8 max "
+                  f"{max_lsb} LSB on {frac:.2e} of pixels; kernel {ms:.4f} ms (u8)", flush=True)
     return report
 
 
@@ -694,33 +727,46 @@ def check_warp_batched(dev, rng) -> dict:
         report[mode] = {"max_abs_err": max_lsb, "ms": ms, "plain_ms": plain_ms,
                         "solo_ms": solo_ms, "f32_err": err_f}
     n_easu, n_src = _easu_work(smaps, H, W)
+    n_bytes = img_u8.numel() * 2 + smaps.numel() * 4
     report["easu"]["bound_ms"], report["easu"]["bound_by"] = _bound(
-        img_u8.numel() * 2 + smaps.numel() * 4, _easu_ops(n_easu, n_src, 3))
+        n_bytes, _easu_ops(n_easu, n_src, 3))
+    n_inside = int((~out).sum())
+    report["bilinear"]["bound_ms"], report["bilinear"]["bound_by"] = _bound(
+        n_bytes, _bilinear_ops(n_inside, 3))
     print(f"K2 warp_batched easu: bound {report['easu']['bound_ms']:.4f} ms "
-          f"({report['easu']['bound_by']}, {n_easu} EASU outputs, {n_src} corner pixels)",
+          f"({report['easu']['bound_by']}, {n_easu} EASU outputs, {n_src} corner pixels); "
+          f"bilinear: bound {report['bilinear']['bound_ms']:.4f} ms "
+          f"({report['bilinear']['bound_by']}, {n_inside} outputs inside), "
+          f"{100.0 * report['bilinear']['bound_ms'] / report['bilinear']['ms']:.0f}% of it",
           flush=True)
 
-    # Streams under the overflowing maps (each a little apart), EASU.
+    # Streams under the overflowing maps (each a little apart), each mode.
     kinds = list(OVERFLOW_MAPS.values())
     omaps = torch.stack([_affine_map((H, W), kinds[s % 2][0] * (1.0 + 0.01 * s),
                                      kinds[s % 2][1] + 0.01 * s, dev) for s in range(STREAMS)])
-    paths = [_paths(lambda c, m=m: warp_kernel.warp(img_u8[0], m, block_paths=c), dev) for m in omaps]
-    assert all(over >= used // 2 for used, over in paths), f"blocks (used, over): {paths}"
-    kf = warp_kernel.warp_batched(img_f, omaps)
-    err_f = float((kf - remap_ops.remap_batched_plain(img_f, omaps, filter_mode="easu")).abs().max())
-    assert err_f <= 1e-4, f"overflowing batched f32 warp differs from plain by {err_f} > 1e-4"
-    assert torch.equal(kf, torch.stack([warp_kernel.warp(img_f[s], omaps[s]) for s in range(STREAMS)]))
-    del kf
-    ku = warp_kernel.warp_batched(img_u8, omaps)
-    max_lsb, frac = _u8_diff(ku, remap_ops.remap_batched_plain(img_u8, omaps, filter_mode="easu"))
-    assert max_lsb <= 1 and frac <= 1e-3, (
-        f"overflowing batched u8 warp: max {max_lsb} LSB on {frac:.2e} of pixels")
-    assert torch.equal(ku, torch.stack([warp_kernel.warp(img_u8[s], omaps[s]) for s in range(STREAMS)]))
-    del ku
-    print(f"K2 warp_batched easu under zoom-out / rotation maps: {sum(o for _, o in paths)} of "
-          f"{sum(u for u, _ in paths)} blocks gather from device memory; f32 max|err| "
-          f"{err_f:.3e}; u8 max {max_lsb} LSB on {frac:.2e} of pixels; bit-equal to {STREAMS} "
-          f"solo K1", flush=True)
+    for mode in ("easu", "bilinear"):
+        kw = dict(filter_mode=mode)
+        paths = [_paths(lambda c, m=m: warp_kernel.warp(img_u8[0], m, block_paths=c, **kw), dev)
+                 for m in omaps]
+        assert all(over >= used // 2 for used, over in paths), f"{mode} (used, over): {paths}"
+        kf = warp_kernel.warp_batched(img_f, omaps, **kw)
+        err_f = float((kf - remap_ops.remap_batched_plain(img_f, omaps, **kw)).abs().max())
+        assert err_f <= 1e-4, f"overflowing batched {mode} f32 warp differs by {err_f} > 1e-4"
+        assert torch.equal(kf, torch.stack([warp_kernel.warp(img_f[s], omaps[s], **kw)
+                                            for s in range(STREAMS)]))
+        del kf
+        ku = warp_kernel.warp_batched(img_u8, omaps, **kw)
+        max_lsb, frac = _u8_diff(ku, remap_ops.remap_batched_plain(img_u8, omaps, **kw))
+        assert max_lsb <= 1 and frac <= 1e-3, (
+            f"overflowing batched {mode} u8 warp: max {max_lsb} LSB on {frac:.2e} of pixels")
+        assert torch.equal(ku, torch.stack([warp_kernel.warp(img_u8[s], omaps[s], **kw)
+                                            for s in range(STREAMS)]))
+        del ku
+        used, over = sum(u for u, _ in paths), sum(o for _, o in paths)
+        print(f"K2 warp_batched {mode} under zoom-out / rotation maps: {used - over} of {used} "
+              f"blocks stage their source box, {over} gather from device memory; f32 max|err| "
+              f"{err_f:.3e}; u8 max {max_lsb} LSB on {frac:.2e} of pixels; bit-equal to "
+              f"{STREAMS} solo K1", flush=True)
     return report
 
 
@@ -1547,6 +1593,13 @@ TOOL_ROWS = {
                         "easu_scale 1080p->4K", "rcas@4K", "easu+rcas fused"),
     "profile_serving_stages": ("full step (easu    )", "full step (bilinear)",
                                f"tracker.track (S={STREAMS})", "queue quant/push/deq "),
+    # tools/profile_warp_torch.py's rows: the maps, then for each filter and
+    # frame type the whole warps, the kernel, and K2 and S solo launches.
+    "profile_warp": ("homography.sample_map 1080p", "warpfield.sample_map 1080p") + tuple(
+        name for f in ("easu", "bilinear") for _ in ("u8", "f32")
+        for name in ("warp.apply 1080p", "warpfield.apply 1080p", "homography.warp 1080p",
+                     "warp kernel 1080p")
+        + tuple(f"S={n} {f} {kind}" for n in (1, 2, 4, 8) for kind in ("batched", "lax.map"))),
 }
 # Kernel launches of each tool's steps, per captured graph (its warm-up
 # steps and its capture launch them; a replay calls no wrapper): a sum
@@ -1558,7 +1611,12 @@ TOOL_LAUNCHES = {
     "profile_stages": {"warp": 2, "lk_track": 2},  # full step, track; warp.apply
     "profile_tracker": {"lk_track": 2},  # track, optical_flow.track (solo or batched)
     "profile_enhance": {"easu_scale": 2, "rcas": 2},
-    "profile_serving_stages": {"warp_batched": 2, "lk_track": 3},
+    # The bilinear tick's K2 launch is one of the two.
+    "profile_serving_stages": {"warp_batched": 2, "warp_batched_bilinear": 1, "lk_track": 3},
+    # For each filter and frame type: warp.apply, warpfield.apply,
+    # homography.warp, the kernel alone and sum(S) solo launches (K1); one K2
+    # launch for each S.
+    "profile_warp": {"warp": 4 * (4 + 15), "warp_batched": 4 * 4, "warp_batched_bilinear": 2 * 4},
 }
 # Launches outside the graphs: profile_tracker seeds its state with two
 # tracks.
@@ -1578,9 +1636,10 @@ def _bench_tools():
     import profile_serving_stages_torch
     import profile_stages_torch
     import profile_tracker_torch
+    import profile_warp_torch
 
     return (bench_torch, bench_matrix_torch, profile_stages_torch, profile_tracker_torch,
-            profile_enhance_torch, profile_serving_stages_torch)
+            profile_enhance_torch, profile_serving_stages_torch, profile_warp_torch)
 
 
 def run_ladder_config(dev, rng, name, filt, c, size, fmt) -> dict:
@@ -1690,18 +1749,20 @@ def run_bench_tools(dev) -> dict:
          replays, 3 runs a row): bench_torch, the 14 configs of
          bench_matrix_torch, profile_stages, profile_tracker at S = 1 and
          S = STREAMS and with the mesh preset's tracker at S = 1,
-         profile_enhance and profile_serving_stages at S = STREAMS.  Every
-         row is finite and above an empty kernel's time, every row name is
-         there, and each tool's launches are TOOL_LAUNCHES' x
-         (WARMUP_STEPS + 1) (the captures; replays launch through no
-         wrapper) and TOOL_SEEDING's.
+         profile_enhance, profile_serving_stages at S = STREAMS and
+         profile_warp (EASU and bilinear, u8 and f32, K2 at S = 1, 2, 4,
+         8 against S solo launches, and the warp.apply split into map
+         build, kernel and the rest).  Every row is finite and above an
+         empty kernel's time, every row name is there, and each tool's
+         launches are TOOL_LAUNCHES' x (WARMUP_STEPS + 1) (the captures;
+         replays launch through no wrapper) and TOOL_SEEDING's.
 
     Between configs and rows every graph and its pool is released."""
     from livevisionkit_tpu_torch.utils.compiled import WARMUP_STEPS
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(2)
-    bt, bm, ps, pt, pe, pss = _bench_tools()
+    bt, bm, ps, pt, pe, pss, pw = _bench_tools()
     ladder = {}
     for name, filt, c, h, w, fmt in bm.configs():
         if name in NEW_LADDER:
@@ -1738,6 +1799,10 @@ def run_bench_tools(dev) -> dict:
     rows["profile_enhance"] = counted("profile_enhance", lambda: pe.enhance(size, dev))
     rows["profile_serving_stages"] = counted(
         "profile_serving_stages", lambda: pss.serving_stages(STREAMS, size, dev))
+    warp_rows = counted("profile_warp", lambda: pw.profile(size, dev))
+    rows["profile_warp"] = [(f"{r['row']} ({r['filter']}, {r['dtype']})", r["ms"])
+                            for r in warp_rows]
+    warp_split = pw.split(warp_rows)
 
     want = {"bench": ("1080p_stabilization_latency",),
             "bench_matrix": tuple(c[0] for c in bm.configs()),
@@ -1746,10 +1811,12 @@ def run_bench_tools(dev) -> dict:
             f"profile_tracker S={STREAMS}": TOOL_ROWS["profile_tracker"],
             "profile_tracker S=1 mesh": TOOL_ROWS["profile_tracker"] + ("mesh_motion.estimate",),
             "profile_enhance": TOOL_ROWS["profile_enhance"],
-            "profile_serving_stages": TOOL_ROWS["profile_serving_stages"]}
+            "profile_serving_stages": TOOL_ROWS["profile_serving_stages"],
+            "profile_warp": TOOL_ROWS["profile_warp"]}
     assert len(want["bench_matrix"]) == 14
     for key, names in want.items():
-        assert tuple(n for n, _ in rows[key]) == names, f"{key}: rows {[n for n, _ in rows[key]]}"
+        got = [n for n, _ in rows[key]] if key != "profile_warp" else [r["row"] for r in warp_rows]
+        assert tuple(got) == names, f"{key}: rows {got}"
         bad = [(n, ms) for n, ms in rows[key] if not (math.isfinite(ms) and ms > floor)]
         assert not bad, f"{key}: rows not finite or under the {floor:.4f} ms launch floor: {bad}"
     wall = time.perf_counter() - t0
@@ -1761,8 +1828,11 @@ def run_bench_tools(dev) -> dict:
           + " | new ladder configs as graphs (device / host): "
           + ", ".join(f"{n} {r['gpu_ms']:.4f} / {r['wall_ms']:.4f}" for n, r in ladder.items()),
           flush=True)
-    return {"ladder": ladder, "k1": k1, "rows": rows, "launches": launches, "floor_ms": floor,
-            "wall_s": wall}
+    print(f"{_gpu_line()} | profile_warp, warp.apply 1080p split (ms): " + " | ".join(
+        f"{f} {d}: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        for (f, d), parts in warp_split.items()), flush=True)
+    return {"ladder": ladder, "k1": k1, "rows": rows, "launches": launches,
+            "warp_split": warp_split, "floor_ms": floor, "wall_s": wall}
 
 
 def run_chain(dev, rng, profile_dir: str | None) -> dict:
@@ -3449,6 +3519,10 @@ def main() -> int:
         entry("warp_c4", "warp.cu", "warp.py:312", dbg["solo_launches"]["warp"], k1_c4["flagship"]),
         entry("warp_batched_c4", "warp.cu", "warp.py:829", dbg["multi_launches"]["warp_batched"],
               k2_c4),
+        # K2 in bilinear mode: the serving split's bilinear tick and
+        # profile_warp's K2 rows (run_bench_tools).
+        entry("warp_batched_bilinear", "warp.cu", "warp.py:489",
+              bt["launches"]["warp_batched_bilinear"], warp_b_rep["bilinear"]),
         entry("warp_bilinear", "warp.cu", "warp.py:81", rt["lc"]["bilinear"]["launches"]["warp"],
               rt["lc"]["bilinear"], library_ms=rt["lc"]["bilinear"]["library_ms"]),
         entry("lk_track", "lk.cu", "lk.py:255",

@@ -28,17 +28,46 @@
 // barriers and stores: about two thirds of the kernel's time.  A u8 source
 // is filtered on its 0..255 scale (the scale the oracle's constants, e.g.
 // 1/32768, are applied on) and the result is rounded half to even and
-// clipped back to u8.  The bilinear mode keeps one thread per output
-// gathering its 4 taps through the read-only cache.
+// clipped back to u8.
+//
+// The bilinear mode is bound by bytes: 8 bytes of map and 2 x C of u8
+// source and output a pixel (at 3x1080x1920 u8 ~8.7 us of the card's
+// memory rate against ~1.4 us of its f32 rate).  One thread per output,
+// gathering 4 x C single bytes through the read-only cache after its map
+// load, spent 15 memory instructions on 14 bytes and reached ~40% of it.
+// Its design: a block of 32 x 8 threads owns a 128 x 16 output tile, a
+// thread 4 outputs 32 columns apart in each of 2 rows, so that a warp
+// loads, reads and stores 32 adjacent columns at a time; a thread first
+// issues all its map loads (streaming); the block reduces its samples'
+// clamped floors to a source box and stages the box in shared memory as
+// floats, planes a fixed stride apart (u8 by 32-bit loads, each pixel
+// converted once; f32 by 16-byte cp.async; rows that are not whole aligned
+// quads a pixel at a time); each output reads its 4 taps a plane from
+// there without bank conflicts and is stored streaming.  A tile whose box
+// exceeds kBilCap pixels a plane (a 0.5x zoom-out, a 30-degree rotation)
+// gathers its taps from device memory; lvk_warp_counted counts such tiles
+// as for EASU.  Every path gives the same bits as the others and as the
+// one-thread-per-output kernel it replaced (the same floors, clamped
+// indices, inside test and lerps in the same order, the fill after the
+// lerp).  Measured on the H100 (tools/torch_kernels_ab.py, PERF.md
+// section 6): what is left is each block's two waits on device memory in
+// series (its map, then its box), with 64 registers a thread and 4 blocks
+// a multiprocessor.  Threads owning 4 adjacent outputs (16-byte map loads,
+// 32-bit u8 stores) read their staged taps 4 words apart, a 4-way bank
+// conflict, and were slower; so were a persistent block pipelining the
+// next tiles' maps and boxes through cp.async, an L2 prefetch of the map
+// one wave ahead, and rounding without conversion instructions.
 
 #include "easu.cuh"
 
 namespace {
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(uint8_t* p, float v) {
-  *p = static_cast<uint8_t>(fminf(fmaxf(rintf(v), 0.0f), 255.0f));
+// u8 outputs are rounded half to even and clipped.
+__device__ __forceinline__ uint8_t to_u8(float v) {
+  return static_cast<uint8_t>(fminf(fmaxf(rintf(v), 0.0f), 255.0f));
 }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(uint8_t* p, float v) { *p = to_u8(v); }
 
 // Output rows per thread: a block's tile is 32 x 32 outputs, so the staging
 // and barriers of a tile are shared by 4 outputs a thread.
@@ -140,41 +169,298 @@ __global__ void __launch_bounds__(kThreadsX * kThreadsY, 4)
 
 constexpr int kMaxC = 4;
 
-// Bilinear, one thread per output pixel, the same stream layout.
-template <typename T>
-__global__ void __launch_bounds__(kThreadsX * kThreadsY, 3)
+// ---------------------------------------------------------------- bilinear
+
+// A bilinear thread owns kOuts outputs of a row, kThreadsX apart, in each of
+// kBilRows rows, kThreadsY apart: a block of 32 x 8 threads owns a 128 x 16
+// tile.  A warp's 32 lanes then load, read their taps and store at 32
+// adjacent columns at a time: whole 128-byte map rows, shared-memory reads
+// without bank conflicts (the taps of adjacent outputs are adjacent words)
+// and 32-byte (u8) or 128-byte (f32) stores.
+constexpr int kOuts = 4;
+constexpr int kBilRows = 2;
+constexpr int kBilTileW = kThreadsX * kOuts, kBilTileH = kThreadsY * kBilRows;
+// Elements of one vector access of a staged row: a 32-bit word of u8, a
+// float4 of f32.
+constexpr int kQuad = 4;
+// Source pixels a plane a bilinear block stages, as floats, planes kBilCap
+// apart (a tap's channels then sit at constant offsets).  A tile under a
+// stabilization warp (scale near 1, a few degrees of rotation) needs about
+// 136 x 22 of them; a 30-degree rotation (~124 x 80) or a 0.5x zoom-out
+// (~260 x 34) does not fit and gathers from device memory.
+constexpr int kBilCap = 4096;
+
+template <int NC>
+constexpr size_t bilinear_smem() {
+  return static_cast<size_t>(NC) * kBilCap * sizeof(float);
+}
+
+// Resident blocks a multiprocessor, at most 4 (64 registers a thread), as
+// its 228 KB of shared memory (1 KB of it reserved a block) allow.
+template <int NC>
+constexpr int bilinear_blocks() {
+  return 228 * 1024 / (bilinear_smem<NC>() + 1024) < 4
+             ? static_cast<int>(228 * 1024 / (bilinear_smem<NC>() + 1024))
+             : 4;
+}
+
+template <size_t N, typename P>
+__device__ __forceinline__ bool aligned(const P* p) {
+  return (reinterpret_cast<uintptr_t>(p) & (N - 1)) == 0;
+}
+
+// An asynchronous 16-byte copy from device to shared memory (cp.async): no
+// register holds it, so every copy of a thread is in flight at once.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The three lerps, in the plain version's order (ops/remap.bilinear_sample).
+__device__ __forceinline__ float bilerp(float v00, float v01, float v10, float v11, float wx,
+                                        float wy) {
+  const float top = v00 + (v01 - v00) * wx;
+  const float bot = v10 + (v11 - v10) * wx;
+  return top + (bot - top) * wy;
+}
+
+// A streaming store of one output: u8 by one conversion (cvt.rni rounds
+// half to even and clamps below at 0, NaN to 0, as rintf and the clip do).
+__device__ __forceinline__ void store_rn(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void store_rn(uint8_t* p, float v) {
+  __stcs(p, static_cast<uint8_t>(min(__float2uint_rn(v), 255u)));
+}
+
+__device__ __forceinline__ float4 u8x4_to_float4(unsigned v) {
+  return make_float4(u8_to_float(v & 0xffu), u8_to_float((v >> 8) & 0xffu),
+                     u8_to_float((v >> 16) & 0xffu), u8_to_float(v >> 24));
+}
+
+// Stage the NC planes' rows [oy, oy + bh) x columns [ox, ox + bw) of src as
+// floats into box, rows `pitch` apart and planes kBilCap apart.  With
+// `quads` (ox, w and pitch multiples of 4, src aligned to a quad and ox +
+// pitch <= w) whole quads at a time: u8 by 32-bit loads, all of a thread's
+// issued before its first conversion; f32 by cp.async.  Else an element at
+// a time.  Every thread of the block must call it; it ends synchronized.
+template <typename T, int NC>
+__device__ __forceinline__ void stage_bilinear(float* box, const T* __restrict__ src,
+                                               size_t splane, int w, int oy, int ox, int bw,
+                                               int bh, int pitch, bool quads) {
+  const unsigned tid = thread_rank();
+  const T* base = src + static_cast<size_t>(oy) * w + ox;
+  const unsigned nq = pitch / kQuad;
+  if (quads) {
+    if constexpr (std::is_same_v<T, uint8_t>) {
+      // A box of at most kBilCap pixels a plane has at most kBilCap / 4
+      // quads, kPer a thread.
+      constexpr int kPer = kBilCap / kQuad / kThreads;
+      const unsigned* words = reinterpret_cast<const unsigned*>(base);
+      const size_t wplane = splane / kQuad, wrow = w / kQuad;
+      unsigned v[kPer][NC];
+      BoxWalk p(nq, tid);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (p.r < static_cast<unsigned>(bh)) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) v[k][c] = __ldg(words + c * wplane + p.r * wrow + p.c);
+        }
+        p.next();
+      }
+      BoxWalk q(nq, tid);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (q.r < static_cast<unsigned>(bh)) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            *reinterpret_cast<float4*>(box + c * kBilCap + q.r * pitch + kQuad * q.c) =
+                u8x4_to_float4(v[k][c]);
+        }
+        q.next();
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        for (BoxWalk p(nq, tid); p.r < static_cast<unsigned>(bh); p.next())
+          cp_async16(box + c * kBilCap + p.r * pitch + kQuad * p.c,
+                     base + c * splane + static_cast<size_t>(p.r) * w + kQuad * p.c);
+      cp_async_wait_all();
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      for (BoxWalk p(bw, tid); p.r < static_cast<unsigned>(bh); p.next())
+        box[c * kBilCap + p.r * pitch + p.c] =
+            load(base + c * splane + static_cast<size_t>(p.r) * w + p.c);
+  }
+  __syncthreads();
+}
+
+// Resolve and store a thread's outputs: taps read from the staged box
+// (kStaged; planes kBilCap apart, tap (y, x) at (y - oy) * pitch + x - ox)
+// or gathered from the frame.  The floors, clamped indices, inside test
+// and weights are the plain version's; with a fill (kFill) a sample
+// outside the frame takes it and reads nothing, and a sample inside needs
+// no clamp.
+template <bool kStaged, bool kFill, typename T, int NC>
+__device__ __forceinline__ void resolve_bilinear(
+    const float (&sy)[kBilRows][kOuts], const float (&sx)[kBilRows][kOuts],
+    const float* __restrict__ box, int pitch, int oy, int ox, const T* __restrict__ src,
+    size_t splane, T* __restrict__ out, size_t oplane, int x_first, int y_top, int h, int w,
+    int oh, int ow, float fill) {
+#pragma unroll
+  for (int r = 0; r < kBilRows; ++r) {
+    const int y = y_top + r * kThreadsY;
+#pragma unroll
+    for (int k = 0; k < kOuts; ++k) {
+      const int x = x_first + k * kThreadsX;
+      if (y >= oh || x >= ow) continue;
+      const float y0f = floorf(sy[r][k]), x0f = floorf(sx[r][k]);
+      const float wy = sy[r][k] - y0f, wx = sx[r][k] - x0f;
+      int y0 = static_cast<int>(y0f), x0 = static_cast<int>(x0f);
+      if (!kFill) y0 = clampi(y0, 0, h - 1), x0 = clampi(x0, 0, w - 1);
+      const int dy = min(y0 + 1, h - 1) - y0, dx = min(x0 + 1, w - 1) - x0;
+      const bool inside = sy[r][k] >= 0.0f && sy[r][k] <= h - 1.0f && sx[r][k] >= 0.0f &&
+                          sx[r][k] <= w - 1.0f;
+      float v[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) v[c] = fill;
+      if (inside || !kFill) {
+        if constexpr (kStaged) {
+          const float* p = box + (y0 - oy) * pitch + x0 - ox;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const float* q = p + c * kBilCap;
+            v[c] = bilerp(q[0], q[dx], q[dy * pitch], q[dy * pitch + dx], wx, wy);
+          }
+        } else {
+          const T* p = src + static_cast<size_t>(y0) * w + x0;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const T* q = p + c * splane;
+            v[c] = bilerp(load(q), load(q + dx), load(q + dy * w), load(q + dy * w + dx), wx, wy);
+          }
+        }
+      }
+      T* dst = out + static_cast<size_t>(y) * ow + x;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) store_rn(dst + c * oplane, v[c]);
+    }
+  }
+}
+
+// Bilinear over the same stream layout as the EASU kernel.  Each thread
+// first loads all its outputs' samples (streaming loads); the block
+// reduces the taps they need to a source box, stages it in shared memory
+// as floats when it holds at most kBilCap pixels a plane (else the taps are
+// gathered from device memory; `paths` counts both as the EASU kernel
+// does) and resolves each output from there.
+template <typename T, int NC, bool kFill>
+__global__ void __launch_bounds__(kThreadsX * kThreadsY, (bilinear_blocks<NC>()))
     bilinear_warp_kernel(const T* __restrict__ src, const float* __restrict__ smap,
-                         T* __restrict__ out, long long src_ss, long long map_ss, int nc, int h,
-                         int w, int oh, int ow, int has_fill, float fill) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= ow || y >= oh) return;
-  const size_t o = static_cast<size_t>(y) * ow + x;
+                         T* __restrict__ out, long long src_ss, long long map_ss, int h, int w,
+                         int oh, int ow, float fill, int* __restrict__ paths) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const box = reinterpret_cast<float*>(smem);
+  __shared__ int4 red[kWarps];
   const size_t oplane = static_cast<size_t>(oh) * ow;
   const size_t splane = static_cast<size_t>(h) * w;
   src += blockIdx.z * src_ss;
   smap += blockIdx.z * map_ss;
-  out += blockIdx.z * (oplane * nc);
-  const float sy = smap[o];
-  const float sx = smap[oplane + o];
-  const float y0 = floorf(sy), x0 = floorf(sx);
-  const float wy = sy - y0, wx = sx - x0;
-  const int y0i = clampi(static_cast<int>(y0), 0, h - 1);
-  const int x0i = clampi(static_cast<int>(x0), 0, w - 1);
-  const int y1i = min(y0i + 1, h - 1), x1i = min(x0i + 1, w - 1);
-  const bool inside = sy >= 0.0f && sy <= h - 1.0f && sx >= 0.0f && sx <= w - 1.0f;
+  out += blockIdx.z * (oplane * NC);
+  const int x_first = blockIdx.x * kBilTileW + threadIdx.x;
+  const int y_top = blockIdx.y * kBilTileH + threadIdx.y;
+
+  float sy[kBilRows][kOuts], sx[kBilRows][kOuts];
 #pragma unroll
-  for (int c = 0; c < kMaxC; ++c) {
-    if (c >= nc) break;
-    const T* p = src + c * splane;
-    float v00 = load(p + y0i * w + x0i), v01 = load(p + y0i * w + x1i);
-    float v10 = load(p + y1i * w + x0i), v11 = load(p + y1i * w + x1i);
-    float top = v00 + (v01 - v00) * wx;
-    float bot = v10 + (v11 - v10) * wx;
-    float v = top + (bot - top) * wy;
-    if (has_fill && !inside) v = fill;
-    store(out + c * oplane + o, v);
+  for (int r = 0; r < kBilRows; ++r) {
+    const int y = y_top + r * kThreadsY;
+    const float* m = smap + static_cast<size_t>(y) * ow + x_first;
+#pragma unroll
+    for (int k = 0; k < kOuts; ++k) {
+      sy[r][k] = sx[r][k] = 0.0f;
+      if (y < oh && x_first + k * kThreadsX < ow) {
+        sy[r][k] = __ldcs(m + k * kThreadsX);
+        sx[r][k] = __ldcs(m + oplane + k * kThreadsX);
+      }
+    }
   }
+
+  // The box of the taps the tile needs (its samples inside the frame, or
+  // all of them under replicate borders): the clamped floors' range
+  // [x_lo, x_hi + 1] x [y_lo, y_hi + 1], clamped as the taps are.  A float
+  // clamp to [0, h - 1] before the floor gives the clamped integer floor
+  // (NaN to 0, as the integer conversion does), so a thread reduces its
+  // samples as floats and floors only its four extremes.
+  const float hm1 = h - 1.0f, wm1 = w - 1.0f;
+  float ylo = INFINITY, yhi = -INFINITY, xlo = INFINITY, xhi = -INFINITY;
+#pragma unroll
+  for (int r = 0; r < kBilRows; ++r) {
+#pragma unroll
+    for (int k = 0; k < kOuts; ++k) {
+      if (y_top + r * kThreadsY >= oh || x_first + k * kThreadsX >= ow) continue;
+      float cy = sy[r][k], cx = sx[r][k];
+      if (kFill) {
+        if (!(cy >= 0.0f && cy <= hm1 && cx >= 0.0f && cx <= wm1)) continue;
+      } else {
+        cy = fminf(fmaxf(cy, 0.0f), hm1), cx = fminf(fmaxf(cx, 0.0f), wm1);
+      }
+      ylo = fminf(ylo, cy), yhi = fmaxf(yhi, cy), xlo = fminf(xlo, cx), xhi = fmaxf(xhi, cx);
+    }
+  }
+  int4 b = make_int4(INT_MAX, INT_MIN, INT_MAX, INT_MIN);
+  if (ylo <= yhi)
+    b = make_int4(static_cast<int>(floorf(xlo)), static_cast<int>(floorf(xhi)),
+                  static_cast<int>(floorf(ylo)), static_cast<int>(floorf(yhi)));
+  b = block_bounds(b, red);
+  const bool any = b.x <= b.y;
+  // A source of whole aligned quads is staged a quad at a time from the
+  // quad that holds the box's first column.
+  const bool quads = (w & 3) == 0 && aligned<kQuad * sizeof(T)>(src);
+  const int ox = quads ? b.x & ~(kQuad - 1) : b.x;
+  const int bw = any ? min(b.y + 1, w - 1) - ox + 1 : 0;
+  const int bh = any ? min(b.w + 1, h - 1) - b.z + 1 : 0;
+  const int pitch = (bw + kQuad - 1) & ~(kQuad - 1);
+  const bool staged = any && pitch * bh <= kBilCap;
+  if (paths != nullptr && any && threadIdx.x == 0 && threadIdx.y == 0) {
+    atomicAdd(paths, 1);
+    if (!staged) atomicAdd(paths + 1, 1);
+  }
+  if (staged) {
+    stage_bilinear<T, NC>(box, src, splane, w, b.z, ox, bw, bh, pitch, quads);
+    resolve_bilinear<true, kFill, T, NC>(sy, sx, box, pitch, b.z, ox, src, splane, out, oplane,
+                                         x_first, y_top, h, w, oh, ow, fill);
+  } else {
+    resolve_bilinear<false, kFill, T, NC>(sy, sx, box, 0, 0, 0, src, splane, out, oplane,
+                                          x_first, y_top, h, w, oh, ow, fill);
+  }
+}
+
+template <typename T, int NC, bool kFill>
+cudaError_t launch_bilinear(const void* src, const float* smap, void* out, int n_streams,
+                            long long src_ss, long long map_ss, int h, int w, int oh, int ow,
+                            float fill, int* paths, cudaStream_t stream) {
+  constexpr size_t smem = bilinear_smem<NC>();
+  const cudaError_t e = allow_smem(bilinear_warp_kernel<T, NC, kFill>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((ow + kBilTileW - 1) / kBilTileW, (oh + kBilTileH - 1) / kBilTileH, n_streams);
+  bilinear_warp_kernel<T, NC, kFill><<<grid, dim3(kThreadsX, kThreadsY), smem, stream>>>(
+      static_cast<const T*>(src), smap, static_cast<T*>(out), src_ss, map_ss, h, w, oh, ow, fill,
+      paths);
+  return cudaGetLastError();
+}
+
+template <typename T, int NC>
+cudaError_t launch_bilinear(const void* src, const float* smap, void* out, int n_streams,
+                            long long src_ss, long long map_ss, int h, int w, int oh, int ow,
+                            int has_fill, float fill, int* paths, cudaStream_t stream) {
+  return has_fill ? launch_bilinear<T, NC, true>(src, smap, out, n_streams, src_ss, map_ss, h, w,
+                                                 oh, ow, fill, paths, stream)
+                  : launch_bilinear<T, NC, false>(src, smap, out, n_streams, src_ss, map_ss, h,
+                                                  w, oh, ow, fill, paths, stream);
 }
 
 template <typename T, int NC>
@@ -197,11 +483,12 @@ cudaError_t launch(const void* src, const float* smap, void* out, int n, long lo
                    long long map_ss, int nc, int h, int w, int oh, int ow, int easu, int has_fill,
                    float fill, int rgb_luma, int* paths, cudaStream_t s) {
   if (!easu) {
-    const dim3 grid((ow + kThreadsX - 1) / kThreadsX, (oh + kThreadsY - 1) / kThreadsY, n);
-    bilinear_warp_kernel<T><<<grid, dim3(kThreadsX, kThreadsY), 0, s>>>(
-        static_cast<const T*>(src), smap, static_cast<T*>(out), src_ss, map_ss, nc, h, w, oh, ow,
-        has_fill, fill);
-    return cudaGetLastError();
+    switch (nc) {
+      case 1: return launch_bilinear<T, 1>(src, smap, out, n, src_ss, map_ss, h, w, oh, ow, has_fill, fill, paths, s);
+      case 2: return launch_bilinear<T, 2>(src, smap, out, n, src_ss, map_ss, h, w, oh, ow, has_fill, fill, paths, s);
+      case 3: return launch_bilinear<T, 3>(src, smap, out, n, src_ss, map_ss, h, w, oh, ow, has_fill, fill, paths, s);
+      default: return launch_bilinear<T, 4>(src, smap, out, n, src_ss, map_ss, h, w, oh, ow, has_fill, fill, paths, s);
+    }
   }
   switch (nc) {
     case 1: return launch_easu<T, 1>(src, smap, out, n, src_ss, map_ss, h, w, oh, ow, has_fill, fill, rgb_luma, paths, s);
@@ -217,9 +504,11 @@ cudaError_t launch(const void* src, const float* smap, void* out, int n, long lo
 // smap: S contiguous (2, oh, ow) f32 maps, map_ss apart (a stride of 0
 // shares the operand across streams); out: contiguous (S, nc, oh, ow) of the
 // source dtype.  1 <= nc <= 4, 1 <= S <= 65535.  paths, if not null, is a
-// device int[2] to which an EASU launch adds its blocks that hold an EASU
-// sample and, of those, the blocks whose source box exceeds kBoxCap and
-// which gather from device memory.  Returns cudaGetLastError() after the
+// device int[2] to which a launch adds its blocks that hold a sample that
+// reads the source (EASU: an EASU sample; bilinear: a sample inside the
+// frame, or any under replicate borders) and, of those, the blocks whose
+// source box exceeds the mode's capacity (kBoxCap, kBilCap) and which
+// gather from device memory.  Returns cudaGetLastError() after the
 // launch.
 extern "C" int lvk_warp_counted(const void* src, const void* smap, void* out, int n_streams,
                                 long long src_ss, long long map_ss, int nc, int h, int w,

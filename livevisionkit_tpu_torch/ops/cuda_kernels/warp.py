@@ -9,20 +9,28 @@ plain versions are ops/remap.remap_plain and ops/remap.remap_batched_plain
 (ops/easu.easu_remap and ops/remap.bilinear_sample, under torch.func.vmap
 for the batch), which they match borders included.
 
-What bounds it on the H100: arithmetic.  An EASU output pixel costs ~430
-f32 operations, and each source pixel 27 more for its direction terms,
-against 8 bytes of sample map and 2 x C bytes of u8 source and output, so
-a 1080p u8 YUV warp needs ~14 us of the card's f32 rate and ~9 us of its
-memory rate.  Its design (csrc/warp.cu, csrc/easu.cuh): one kernel per
-channel count (no dead channel); a block owns a 32 x 32 output tile,
-stages its samples' source box in shared memory as float texels (a u8
-frame with word-aligned rows by 32-bit loads) and computes each source
+What bounds it on the H100.  EASU: arithmetic.  An EASU output pixel
+costs ~430 f32 operations, and each source pixel 27 more for its direction
+terms, against 8 bytes of sample map and 2 x C bytes of u8 source and
+output, so a 1080p u8 YUV warp needs ~14 us of the card's f32 rate and ~9
+us of its memory rate.  Its design (csrc/warp.cu, csrc/easu.cuh): one
+kernel per channel count (no dead channel); a block owns a 32 x 32 output
+tile, stages its samples' source box in shared memory as float texels (a
+u8 frame with word-aligned rows by 32-bit loads) and computes each source
 pixel's direction terms once for every output that uses it; a tile whose
 box exceeds the kernel's capacity gathers from device memory
-(`block_paths` counts such tiles).  The bilinear mode gathers its 4 taps
-per output through the read-only cache.  S streams are S z-slices of one grid; an
-operand that every stream shares (a broadcast map under vmap) is read at
-stream stride 0, never copied.
+(`block_paths` counts such tiles).  Bilinear: bytes (the same 14 bytes a
+u8 YUV pixel against ~44 f32 operations).  Its design: one kernel per
+channel count and fill rule; a block owns a 128 x 16 output tile and a
+thread 4 outputs 32 columns apart in each of 2 rows, so that a warp loads,
+reads and stores 32 adjacent columns at a time; the block stages its taps'
+source box in shared memory as floats (u8 by 32-bit loads, f32 by 16-byte
+cp.async, where rows are whole aligned quads) and resolves each output
+from there; a tile whose box exceeds its capacity (a 0.5x zoom-out, a
+30-degree rotation) gathers from device memory, and `block_paths` counts
+it too.  Every path of either mode gives the same bits.  S streams are S
+z-slices of one grid; an operand that every stream shares (a broadcast map
+under vmap) is read at stream stride 0, never copied.
 """
 
 from __future__ import annotations
@@ -86,10 +94,11 @@ def warp(
     dtype.  `fill` is a scalar on the image's own scale (0..255 for u8), or
     None for replicate borders.  The kernel's S = 1 launch.
 
-    `block_paths`, a (2,) int32 tensor on the image's device, makes an EASU
-    launch add to it the kernel's blocks that hold an EASU sample and, of
-    those, the blocks whose source box exceeds the kernel's shared-memory
-    box and which gather from device memory."""
+    `block_paths`, a (2,) int32 tensor on the image's device, makes the
+    launch add to it the kernel's blocks that hold a sample that reads the
+    source (EASU: an EASU sample; bilinear: one inside the frame, or any
+    with `fill=None`) and, of those, the blocks whose source box exceeds the
+    kernel's shared-memory box and which gather from device memory."""
     if img.ndim not in (2, 3) or sample_map.ndim != 3 or sample_map.shape[0] != 2:
         raise ValueError(f"warp takes a (C, H, W) image and a (2, H, W) map, got "
                          f"{tuple(img.shape)} and {tuple(sample_map.shape)}")
@@ -114,7 +123,9 @@ def warp_batched(
     (S, 2, H', W') map, in one launch; returns (S, C, H', W') (or
     (S, H', W')).  Each stream's frame and map must be contiguous; an
     operand broadcast over streams (stream stride 0, as `expand` makes it)
-    is read in place.  `block_paths` as in `warp`, over all streams."""
+    is read in place.  `block_paths` as in `warp`, over all streams.
+    `warp_batched.launches_bilinear` counts the launches in bilinear mode
+    (a part of `warp_batched.launches`)."""
     if imgs.ndim not in (3, 4) or sample_maps.ndim != 4 or sample_maps.shape[1] != 2:
         raise ValueError(f"warp_batched takes (S, C, H, W) frames and (S, 2, H, W) maps, got "
                          f"{tuple(imgs.shape)} and {tuple(sample_maps.shape)}")
@@ -130,9 +141,11 @@ def warp_batched(
     _launch(imgs, sample_maps, out, n, imgs.stride(0), sample_maps.stride(0), c, fill,
             filter_mode, fmt, block_paths)
     warp_batched.launches += 1
+    warp_batched.launches_bilinear += int(filter_mode == "bilinear")
     return out
 
 
 warp.launches = 0
 warp_batched.launches = 0
+warp_batched.launches_bilinear = 0
 

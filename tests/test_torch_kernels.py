@@ -257,11 +257,15 @@ WARP_MAPS = {"stabilize": (1.02, math.radians(2.0)), "zoom_out": (2.0, 0.0),
 @pytest.mark.parametrize("nc_fmt", WARP_FORMATS, ids=lambda p: f"{p[0]}{p[1]}")
 @pytest.mark.parametrize("dtype", ["float32", "uint8"])
 @pytest.mark.parametrize("width", [203, 204])
-def test_warp_kernel_tile_paths(cuda, width, dtype, nc_fmt, kind):
-    """The EASU warp's shared-memory and device-memory block paths against
-    the plain version, K1's bounds, and S = 8 streams bit-equal to 8 solo
-    launches (the maps spread around the kind's).  A u8 source 204 wide is
-    staged by 32-bit words, one 203 wide a pixel at a time."""
+@pytest.mark.parametrize("mode", ["easu", "bilinear"])
+def test_warp_kernel_tile_paths(cuda, mode, width, dtype, nc_fmt, kind):
+    """The warp's shared-memory and device-memory block paths, in each
+    mode, against the plain version, K1's bounds, and S = 8 streams
+    bit-equal to 8 solo launches (the maps spread around the kind's).  The
+    kernel's own tile counts show every block of the stabilization map
+    staged and some blocks of the zoom-out and the rotation gathering from
+    device memory.  A u8 source 204 wide is staged by 32-bit words, one
+    203 wide a pixel at a time."""
     nc, fmt = nc_fmt
     size, out_size = (117, width), (101, 187)
     rng = np.random.default_rng(7)
@@ -274,14 +278,14 @@ def test_warp_kernel_tile_paths(cuda, width, dtype, nc_fmt, kind):
     maps = torch.stack([_affine_map(size, out_size, scale * (1 + 0.01 * s), angle + 0.01 * s)
                         for s in range(8)]).to(cuda)
     pf = getattr(PixelFormat, fmt)
-    got = warp_kernel.warp_batched(imgs, maps, fill=0.0, fmt=pf)
+    kw = dict(fill=0.0, filter_mode=mode, fmt=pf)
+    got = warp_kernel.warp_batched(imgs, maps, **kw)
     paths = torch.zeros(2, dtype=torch.int32, device=cuda)  # stream 0's blocks
-    solo = torch.stack([warp_kernel.warp(imgs[s], maps[s], fill=0.0, fmt=pf,
-                                         block_paths=paths if s == 0 else None)
-                        for s in range(8)])
+    solo = torch.stack([warp_kernel.warp(imgs[s], maps[s], block_paths=paths if s == 0 else None,
+                                         **kw) for s in range(8)])
     used, over = paths.tolist()
     assert used > 0 and (over == 0 if kind == "stabilize" else over > 0), (used, over)
-    want = remap_ops.remap_batched_plain(imgs, maps, fill=0.0, filter_mode="easu", fmt=pf)
+    want = remap_ops.remap_batched_plain(imgs, maps, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, solo)
     if dtype == "uint8":
@@ -289,6 +293,118 @@ def test_warp_kernel_tile_paths(cuda, width, dtype, nc_fmt, kind):
         assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
     else:
         assert float((got - want).abs().max()) <= 1e-4
+
+
+def _bilinear_checked(imgs, maps, fill=0.0, paths=None):
+    """K2 bilinear over (S, C, H, W) frames and (S, 2, H', W') maps, held to
+    the plain batched version (f32 atol 1e-4; u8 at most 1 LSB on at most
+    0.1% of pixels) and bit-equal to S solo launches (stream 0's counted
+    into `paths`); returns it."""
+    kw = dict(fill=fill, filter_mode="bilinear")
+    got = warp_kernel.warp_batched(imgs, maps, **kw)
+    solo = torch.stack([warp_kernel.warp(imgs[s].contiguous(), maps[s].contiguous(),
+                                         block_paths=paths if s == 0 else None, **kw)
+                        for s in range(imgs.shape[0])])
+    want = remap_ops.remap_batched_plain(imgs, maps, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, solo)
+    if imgs.dtype == torch.uint8:
+        d = (got.int() - want.int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+    else:
+        assert float((got - want).abs().max()) <= 1e-4
+    return got
+
+
+def _bilinear_inputs(dev, size, out_size, dtype, n=3, scale=1.02, angle=math.radians(2.0)):
+    rng = np.random.default_rng(11)
+    imgs = torch.from_numpy(rng.uniform(0.0, 1.0, size=(n, 3) + size).astype(np.float32)).to(dev)
+    if dtype == "uint8":
+        imgs = torch.clamp(imgs * 255.0 + 0.5, 0, 255).to(torch.uint8)
+    maps = torch.stack([_affine_map(size, out_size, scale * (1 + 0.01 * s), angle + 0.01 * s)
+                        for s in range(n)]).to(dev)
+    return imgs, maps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("width", range(1, 10))
+def test_warp_bilinear_vector_tail(cuda, width, dtype):
+    """Frames and outputs 1-9 pixels wide: a thread's four outputs are a
+    whole 16-byte map quad and one store a plane only at widths 4 and 8;
+    the rest take the scalar tail.  Both give the plain version's values,
+    with a fill and with replicate borders."""
+    imgs, maps = _bilinear_inputs(cuda, (29, width), (23, width), dtype)
+    _bilinear_checked(imgs, maps)
+    _bilinear_checked(imgs, maps, fill=None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_warp_bilinear_u8_unaligned_frame(cuda, offset):
+    """A u8 frame whose data starts 1-3 bytes past a word is staged a pixel
+    at a time, bit-equal to the same frame staged by 32-bit words, and
+    every block stages its box."""
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.integers(0, 256, size=(3, 117, 204), dtype=np.uint8)).to(cuda)
+    shifted = torch.empty(img.numel() + offset, dtype=torch.uint8,
+                          device=cuda)[offset:].view(img.shape)
+    shifted.copy_(img)
+    smap = _affine_map((117, 204), (101, 188), 1.02, math.radians(2.0)).to(cuda)
+    paths = torch.zeros(2, dtype=torch.int32, device=cuda)
+    got = warp_kernel.warp(shifted, smap, filter_mode="bilinear", block_paths=paths)
+    used, over = paths.tolist()
+    assert used > 0 and over == 0, (used, over)
+    assert torch.equal(got, warp_kernel.warp(img, smap, filter_mode="bilinear"))
+    _bilinear_checked(shifted[None], smap[None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_warp_bilinear_replicate_borders(cuda, dtype):
+    """fill=None: samples outside the frame take the clamped border taps,
+    so every sample reads the source, the staged box holds them and no
+    block gathers from device memory."""
+    imgs, maps = _bilinear_inputs(cuda, (117, 204), (101, 188), dtype, angle=math.radians(1.0))
+    maps = maps + torch.tensor([6.0, -9.0], device=cuda)[None, :, None, None]
+    out = (maps[:, 0] < 0) | (maps[:, 0] > 116) | (maps[:, 1] < 0) | (maps[:, 1] > 203)
+    assert int(out.sum()) > 1000
+    paths = torch.zeros(2, dtype=torch.int32, device=cuda)
+    _bilinear_checked(imgs, maps, fill=None, paths=paths)
+    used, over = paths.tolist()
+    assert used == 2 * 7 and over == 0, (used, over)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_warp_bilinear_map_outside_the_frame(cuda, dtype):
+    """A map wholly outside the frame: with a fill every output is the fill
+    and no block reads the source; with replicate borders every output
+    lerps the clamped taps of the bottom-left corner, a box of 1 x 2
+    pixels that every block stages."""
+    imgs, maps = _bilinear_inputs(cuda, (117, 204), (101, 188), dtype)
+    maps = maps + torch.tensor([500.0, -700.0], device=cuda)[None, :, None, None]
+    paths = torch.zeros(2, dtype=torch.int32, device=cuda)
+    got = _bilinear_checked(imgs, maps, fill=7.0, paths=paths)
+    assert torch.equal(got, torch.full_like(got, 7))
+    assert paths.tolist() == [0, 0]
+    paths.zero_()
+    _bilinear_checked(imgs, maps, fill=None, paths=paths)
+    used, over = paths.tolist()
+    assert used == 2 * 7 and over == 0, (used, over)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_warp_bilinear_stride0_streams(cuda, dtype):
+    """S = 8 with a frame and a map each at stream stride 0 (broadcast, not
+    copied): every stream's output is the solo launch's, and the plain
+    version's within K1's bounds."""
+    imgs, maps = _bilinear_inputs(cuda, (1080 // 8, 1920 // 8), (1080 // 8, 1920 // 8), dtype, n=1)
+    img8, map8 = imgs.expand(8, -1, -1, -1), maps.expand(8, -1, -1, -1)
+    assert img8.stride(0) == 0 and map8.stride(0) == 0
+    got = _bilinear_checked(img8, map8)
+    assert torch.equal(got, got[:1].expand_as(got))
 
 
 @pytest.mark.cuda

@@ -17,9 +17,11 @@ single launches behind a device spin (chip_smoke._median_ms, the kernels
 line's timer) and without it (the timer before the spin, whose times
 also hold the host's enqueue gap). The cases are chip_smoke.py's inputs:
 the EASU warp solo (u8 3x1080x1920) and over 8 streams, the same for the
-bilinear mode, the EASU upscale (f32, 1080p -> 4K and 720p -> 1080p), LK
-solo (3 levels of 272x480, 510 features), over 8 streams and with one
-level (K4), and RCAS at 3x2160x3840; `--cases` keeps those whose name
+bilinear mode, the bilinear mode on a u8 3x2160x3840 frame and on an f32
+1080p frame under lens correction's undistort map, the EASU upscale
+(f32, 1080p -> 4K and 720p -> 1080p), LK solo (3 levels of 272x480, 510
+features), over 8 streams and with one level (K4), and RCAS at
+3x2160x3840; `--cases` keeps those whose name
 holds one of the given words. It also prints how far each version's
 outputs are from this checkout's, and two floors under the same timers:
 an empty kernel (this checkout's `lvk_noop`) and a `torch.clone` of the
@@ -42,6 +44,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (its inputs and timer)
+import livevisionkit_tpu_torch as lvk  # noqa: E402
 from livevisionkit_tpu_torch.config import OpticalFlowSettings  # noqa: E402
 from livevisionkit_tpu_torch.ops import easu as easu_ops  # noqa: E402
 from livevisionkit_tpu_torch.ops.cuda_kernels import build  # noqa: E402
@@ -154,6 +157,20 @@ def main() -> int:
     prev_b, nxt_b, pts_b, _ = chip_smoke.lk_batched_inputs(dev, rng)
     zero, zero_b = torch.zeros_like(pts), torch.zeros_like(pts_b)
     frame_4k = chip_smoke.rcas_input(dev, rng)
+    # The 4K stabilizer's bilinear u8 warp and lens correction's bilinear
+    # f32 warp (chip_smoke.check_warp_ladder's and check_lens_correction's
+    # inputs).
+    uhd = chip_smoke.OUT
+    luma_4k = torch.from_numpy(chip_smoke._texture(*uhd, rng)).to(dev)
+    frame_4k_u8 = torch.stack([luma_4k, 0.25 + 0.5 * luma_4k.flip(0), 0.75 - 0.5 * luma_4k.flip(1)])
+    frame_4k_u8 = torch.clamp(frame_4k_u8 * 255.0 + 0.5, 0, 255).to(torch.uint8)[None].contiguous()
+    k = uhd[0] / H
+    map_4k = chip_smoke._similarity(1.01, math.radians(0.5), 12.0 * k, -7.0 * k, dev).sample_map(
+        uhd)[None].contiguous()
+    lc = lvk.LensCorrectionFilter(parameters=lvk.CameraParameters(**chip_smoke.CAMERA),
+                                  warp_filter="bilinear")
+    lc_map = lc.init(lvk.FrameSpec(H, W, 3, lvk.PixelFormat.YUV), device=dev).sample_map((H, W))
+    lc_map = lc_map[None].contiguous()
     cases.update({
         "K3 lk_track 3 levels of 272x480, 510 features": lambda lib: _lk(lib, prev, nxt, pts, zero),
         f"K3 lk_track {S} streams x 3 levels of 272x480, {S}x510 features": lambda lib: _lk(
@@ -161,6 +178,9 @@ def main() -> int:
         "K4 lk_level (K3, n_levels = 1) 272x480, 510 features": lambda lib: _lk(
             lib, prev[:1], nxt[:1], pts, zero),
         "K6 rcas f32 3x2160x3840": lambda lib: _rcas(lib, frame_4k),
+        "K1 warp bilinear u8 3x2160x3840": lambda lib: _warp(lib, frame_4k_u8, map_4k, False),
+        "K1 warp bilinear f32 3x1080x1920 on lens correction's undistort map": lambda lib: _warp(
+            lib, base[None].contiguous(), lc_map, False),
     })
     if args.cases:
         words = args.cases.split(",")
