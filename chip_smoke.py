@@ -1443,15 +1443,14 @@ def run_stream_multi(dev, clips) -> dict:
         for i in range(STREAMS):
             assert [g[0] for g in got[i]] == times, f"stream_multi ({mode}): stream {i} timestamps {got[i]}"
         # A tick's outputs arrive together: stream 0's arrivals time the ticks.
-        rep = {"batches": stats.batches, "fps": total / wall, "fps_batches": stats.fps_aggregate,
+        rep = {"batches": stats.batches, "fps": total / wall,
                "steady_ms": _steady_ms([g[1] for g in got[0]]), "launches": launches,
                "digests": [[g[2] for g in got[i]] for i in range(STREAMS)]}
         mode += ", outputs digested" if digest else ""
         print(f"stream_multi, {mode}: {STREAMS} readers x {DRIVER_FRAMES} u8 BGR 1080p frames, "
               f"{stats.batches} batches, frames in {stats.frames_in} == out {stats.frames_out}, "
               f"{stats.stalls} stalls, per-stream order kept, launches {launches}; "
-              f"{rep['fps']:.1f} frames/s aggregate over the whole run ({wall:.3f} s), "
-              f"{stats.fps_aggregate:.1f} frames/s by the batch stopwatch, {rep['steady_ms']:.4f} "
+              f"{rep['fps']:.1f} frames/s aggregate over the whole run ({wall:.3f} s), {rep['steady_ms']:.4f} "
               f"ms/tick host wall clock from tick {STEADY_FROM} on", flush=True)
         return rep
 

@@ -30,6 +30,7 @@ from livevisionkit_tpu_torch.data.frame import Frame
 from livevisionkit_tpu_torch.filters.base import VideoFilter
 from livevisionkit_tpu_torch.ops import color as color_ops
 from livevisionkit_tpu_torch.ops import resample
+from livevisionkit_tpu_torch.utils.profiling import trace_scope
 
 
 def block_measure(gray: torch.Tensor, block: int) -> torch.Tensor:
@@ -51,6 +52,10 @@ class DeblockingFilter(VideoFilter):
     settings: DeblockingFilterSettings = field(default_factory=DeblockingFilterSettings)
 
     def step(self, state: Any, frame: Frame, *, drain: bool | torch.Tensor = False) -> tuple[Any, Frame]:
+        with trace_scope("deblock"):
+            return state, self._deblock(frame)
+
+    def _deblock(self, frame: Frame) -> Frame:
         s = self.settings
         block = s.block_size
         _, h, w = frame.pixels.shape
@@ -74,7 +79,7 @@ class DeblockingFilter(VideoFilter):
             keep = torch.where((yy >= fh) | (xx >= fw), 1.0, keep)
 
         out = frame.pixels * keep[None] + smooth * (1.0 - keep[None])
-        return state, frame.with_pixels(out)
+        return frame.with_pixels(out)
 
     def influence_map(self, frame: Frame) -> torch.Tensor:
         """(H, W) smoothing weight in [0, 1] for debug overlays (reference

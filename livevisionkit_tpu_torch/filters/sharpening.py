@@ -16,6 +16,7 @@ from livevisionkit_tpu_torch.config import CASFilterSettings
 from livevisionkit_tpu_torch.data.frame import Frame
 from livevisionkit_tpu_torch.filters.base import VideoFilter
 from livevisionkit_tpu_torch.ops import cas as cas_ops
+from livevisionkit_tpu_torch.utils.profiling import trace_scope
 
 
 @dataclass(frozen=True)
@@ -23,4 +24,5 @@ class CASFilter(VideoFilter):
     settings: CASFilterSettings = field(default_factory=CASFilterSettings)
 
     def step(self, state: Any, frame: Frame, *, drain: bool | torch.Tensor = False) -> tuple[Any, Frame]:
-        return state, frame.with_pixels(cas_ops.cas(frame.pixels, self.settings.sharpness))
+        with trace_scope("cas"):
+            return state, frame.with_pixels(cas_ops.cas(frame.pixels, self.settings.sharpness))

@@ -37,6 +37,7 @@ from livevisionkit_tpu_torch.models.homography import Homography
 from livevisionkit_tpu_torch.models.warp_field import WarpField
 from livevisionkit_tpu_torch.ops import drawing
 from livevisionkit_tpu_torch.utils.batching import pytree_dataclass
+from livevisionkit_tpu_torch.utils.profiling import trace_scope
 from livevisionkit_tpu_torch.vision import frame_tracker, path_smoother
 
 
@@ -154,10 +155,11 @@ class StabilizationFilter(VideoFilter):
 
         # Invalid frames carry identity motion; a frozen tick reverts below.
         motion = where_state(frame.valid, motion, identity)
-        smoother_state, correction, ready = path_smoother.next_correction(
-            state.smoother, motion, s.smoother
-        )
-        smoother_state = where_state(advance, smoother_state, state.smoother)
+        with trace_scope("smoother"):
+            smoother_state, correction, ready = path_smoother.next_correction(
+                state.smoother, motion, s.smoother
+            )
+            smoother_state = where_state(advance, smoother_state, state.smoother)
 
         # Delay queue: the push is advance-gated, so a stall bubble lands in
         # the dead slot and oldest() returns the bubble itself (an invalid
@@ -168,27 +170,30 @@ class StabilizationFilter(VideoFilter):
                              "with FrameSpec(has_alpha=...) of the stream's frames")
         u8 = s.queue_dtype == "uint8"
         store = _quantize_u8 if u8 else (lambda x: x)
-        payload = {"pixels": store(frame.pixels), "timestamp": frame.timestamp, "valid": frame.valid}
-        if has_alpha:
-            payload["alpha"] = store(frame.alpha)
-        frames = state.frames.push(payload, advance=advance)
-        delayed = frames.oldest()
-        queue_full = frames.is_full()
+        with trace_scope("queue"):
+            payload = {"pixels": store(frame.pixels), "timestamp": frame.timestamp, "valid": frame.valid}
+            if has_alpha:
+                payload["alpha"] = store(frame.alpha)
+            frames = state.frames.push(payload, advance=advance)
+            delayed = frames.oldest()
+            queue_full = frames.is_full()
 
-        warp = correction
-        if s.crop_output:
-            warp = correction.compose(self._crop_field(warp.field_shape, frame.size, dev))
         # With the u8 queue the warp takes the raw u8 planes and returns u8
         # (the reference warps 8-bit frames), dequantized after.  Alpha goes
         # through the same gather as a last plane; EASU's luma comes from
         # the colour planes alone (plane 0, or planes 0-2 for RGB/BGR).
         planes = delayed["pixels"]
-        if has_alpha:
-            planes = torch.cat([planes, delayed["alpha"][None]])
-        if self.enabled or s.crop_output:
-            planes = warp.apply(planes, fill=0.0, filter_mode=s.warp_filter, fmt=frame.format)
+        with trace_scope("warp"):
+            warp = correction
+            if s.crop_output:
+                warp = correction.compose(self._crop_field(warp.field_shape, frame.size, dev))
+            if has_alpha:
+                planes = torch.cat([planes, delayed["alpha"][None]])
+            if self.enabled or s.crop_output:
+                planes = warp.apply(planes, fill=0.0, filter_mode=s.warp_filter, fmt=frame.format)
         if u8:
-            planes = _dequantize_u8(planes)
+            with trace_scope("queue"):
+                planes = _dequantize_u8(planes)
         out_pixels, out_alpha = (planes[:-1], planes[-1]) if has_alpha else (planes, None)
         if self.debug and self.enabled:
             out_pixels = self._draw_debug(out_pixels, frame.format, result)

@@ -159,6 +159,8 @@ _ENTRY_POINTS = {
     "lvk_rcas": [_p, _p, _i, _i, _i, _f, _p],
     "lvk_rcas_batched": [_p, _p, _i, _ll, _i, _i, _i, _f, _p],
     "lvk_noop": [_p],
+    "lvk_mark_stage": [_i, _p],
+    "lvk_load_stage_marks": [],
     "lvk_error_string": [_i],
 }
 

@@ -343,6 +343,9 @@ def main(argv: list[str] | None = None) -> int:
                 f"{watch.deviation_ms():.2f} ms",
                 file=sys.stderr,
             )
+        print("spans: count, median ms, p95 ms", file=sys.stderr)
+        for name, n, median_ms, p95_ms in stats.session.table():
+            print(f"  {name}: {n}, {median_ms:.3f}, {p95_ms:.3f}", file=sys.stderr)
     if args.log_csv:
         # Aggregate run metrics followed by per-filter average ± deviation
         # rows (the reference's -L CSV timing log writes one avg/dev block

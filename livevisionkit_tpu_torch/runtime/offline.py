@@ -22,6 +22,7 @@ from livevisionkit_tpu_torch.data.frame import Frame
 from livevisionkit_tpu_torch.filters.base import FrameSpec, VideoFilter
 from livevisionkit_tpu_torch.parallel.streams import Mesh, MultiStreamFilter
 from livevisionkit_tpu_torch.types import PixelFormat
+from livevisionkit_tpu_torch.utils import profiling
 from livevisionkit_tpu_torch.utils.compiled import jit_step
 
 
@@ -40,9 +41,16 @@ def process_clip(
     T axis (pixels (T, C, H', W'), valid (T,), timestamp (T,)).  Invalid entries (warm-up delay) are flagged, not
     removed: filter the batch on the host with `outputs.valid`.  Without
     `state`, the filter starts from `filt.init` on `device`; a given
-    `state` is donated.
+    `state` is donated.  The call is one session of utils/profiling.py
+    (kind "clip"; spans `replays` and, on the card, `capture`).
     """
-    device = torch.device(device)
+    with profiling.session("clip") as sess:
+        state, out = _process_clip(filt, pixels, fmt, timestamps, state, torch.device(device))
+        sess.frames = out.valid.shape[0]
+    return state, out
+
+
+def _process_clip(filt, pixels, fmt, timestamps, state, device) -> tuple[Any, Frame]:
     pixels = pixels.to(device)
     t_frames, c, h, w = pixels.shape
     if timestamps is None:
@@ -62,18 +70,24 @@ def process_clip(
         """One frame at the carried device index t: read, step, write, t + 1."""
         st, t = carry
         i = t.reshape(1)
-        frame = Frame(pixels=pixels.index_select(0, i)[0], timestamp=timestamps.index_select(0, i)[0],
-                      valid=live, format=fmt)
+        with profiling.trace_scope("ingest"):
+            frame = Frame(pixels=pixels.index_select(0, i)[0], timestamp=timestamps.index_select(0, i)[0],
+                          valid=live, format=fmt)
         st, out = filt.step(st, frame)
-        out_px.index_copy_(0, i, out.pixels[None])
-        out_ts.index_copy_(0, i, out.timestamp[None])
-        out_valid.index_copy_(0, i, out.valid[None])
-        return (st, t + 1), ()
+        with profiling.trace_scope("egress"):
+            out_px.index_copy_(0, i, out.pixels[None])
+            out_ts.index_copy_(0, i, out.timestamp[None])
+            out_valid.index_copy_(0, i, out.valid[None])
+            t = t + 1
+        return (st, t), ()
 
     step = jit_step(frame_step)
     carry = (state, torch.zeros((), dtype=torch.int64, device=device))
-    for _ in range(t_frames):
-        carry, _ = step(carry)
+    # On the card the first call captures the graph (the step's `capture`
+    # span); every call launches a replay.
+    with profiling.trace_scope("replays"):
+        for _ in range(t_frames):
+            carry, _ = step(carry)
     return carry[0], Frame(pixels=out_px, timestamp=out_ts, valid=out_valid, format=out_spec.format)
 
 

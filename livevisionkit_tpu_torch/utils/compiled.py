@@ -10,7 +10,8 @@ graph captured once and replayed, with static buffers:
   * On CUDA tensors the first call of each signature (the leaves' shapes,
     dtypes and devices, the tree's structure with its static fields, and
     the value of every leaf that is not a tensor, such as a Python `drain`
-    flag) runs `WARMUP_STEPS` steps on copies of the state, on the capture
+    flag, and whether tracing is on: utils/profiling.tracing) runs
+    `WARMUP_STEPS` steps on copies of the state, on the capture
     stream: the first may do first-use work (the per-shape resize weights
     of ops/resample.py, built from host values; library handles), the
     second must not synchronize.  Then it captures one step.
@@ -50,6 +51,8 @@ from typing import Any, Callable, Iterator
 
 import torch
 import torch.utils._pytree as pytree
+
+from livevisionkit_tpu_torch.utils import profiling
 
 # Op-by-op steps run before each capture, on copies of the state: the
 # first with first-use work allowed, the second checked for syncs.
@@ -115,8 +118,10 @@ def _leaf_key(x: Any) -> tuple:
 def signature(leaves: list, spec: pytree.TreeSpec) -> tuple:
     """What one graph serves: the tree's structure (its static fields, such
     as a pixel format or a generator, included), each tensor leaf's shape,
-    dtype and device, and the value of every other leaf."""
-    return (spec, tuple(_leaf_key(x) for x in leaves))
+    dtype and device, the value of every other leaf, and whether tracing is
+    on (a graph captured while tracing holds the stage marks and device
+    counters of utils/profiling.py; one captured while not holds none)."""
+    return (spec, tuple(_leaf_key(x) for x in leaves), profiling.tracing())
 
 
 def _same_buffer(x: torch.Tensor, buf: torch.Tensor) -> bool:
@@ -199,6 +204,12 @@ class CompiledStep:
         return pytree.tree_unflatten(entry.static, spec)[1]
 
     def _capture(self, leaves: list, spec: pytree.TreeSpec, dev: torch.device) -> _Graph:
+        with profiling.trace_scope("capture"):
+            graph = self._capture_graph(leaves, spec, dev)
+        profiling.count("graphs_captured")
+        return graph
+
+    def _capture_graph(self, leaves: list, spec: pytree.TreeSpec, dev: torch.device) -> _Graph:
         state_leaves, state_spec = pytree.tree_flatten(pytree.tree_unflatten(leaves, spec)[0])
         n_state = len(state_leaves)
         gens = generators(leaves, spec)
@@ -229,7 +240,8 @@ class CompiledStep:
                                                           capture_error_mode="thread_local"):
                 with _sync_debug("error"):
                     new_state, outputs = self.fn(state, *inputs)
-                    donate(new_state, static[:n_state], state_spec)
+                    with profiling.trace_scope("donate"):
+                        donate(new_state, static[:n_state], state_spec)
         result = (pytree.tree_unflatten(static[:n_state], state_spec), outputs)
         return _Graph(graph=graph, device=dev, static=static, result=result)
 

@@ -25,6 +25,7 @@ from livevisionkit_tpu_torch.config import FrameTrackerSettings
 from livevisionkit_tpu_torch.models.warp_field import WarpField
 from livevisionkit_tpu_torch.ops import resample
 from livevisionkit_tpu_torch.utils.batching import pytree_dataclass
+from livevisionkit_tpu_torch.utils.profiling import count_on_device, counting, trace_scope
 from livevisionkit_tpu_torch.vision import features as features_mod
 from livevisionkit_tpu_torch.vision import mesh_motion, optical_flow, ransac
 from livevisionkit_tpu_torch.vision.features import FeatureGrid
@@ -88,22 +89,36 @@ def track(
 
     gray: (H, W) full-resolution luma in [0, 1].
     """
+    with trace_scope("tracker"):
+        return _track(state, gray, settings)
+
+
+def _track(
+    state: TrackerState, gray: torch.Tensor, settings: FrameTrackerSettings
+) -> tuple[TrackerState, TrackResult]:
     det_size = tuple(settings.detection_size)
     res = tuple(settings.motion_resolution)
-    det = resample.resize(gray, det_size, antialias=True)
-    pyr = Pyramid.build(det, settings.flow.pyramid_levels)
+    with trace_scope("tracker.pyramid"):
+        det = resample.resize(gray, det_size, antialias=True)
+        pyr = Pyramid.build(det, settings.flow.pyramid_levels)
 
-    new_pts, tracked = optical_flow.track(
-        state.pyramid, pyr, state.features.points,
-        state.features.valid & state.has_prev, settings.flow,
-    )
+    with trace_scope("tracker.lk"):
+        new_pts, tracked = optical_flow.track(
+            state.pyramid, pyr, state.features.points,
+            state.features.valid & state.has_prev, settings.flow,
+        )
 
     uniformity = features_mod.distribution_quality(new_pts, tracked, det_size)
     use_h = uniformity > settings.motion.min_homography_uniformity
-    est = ransac.estimate(
-        state.features.points, new_pts, tracked, state.generator, settings.motion,
-        use_homography=use_h, min_samples=settings.min_motion_samples,
-    )
+    with trace_scope("tracker.ransac"):
+        est = ransac.estimate(
+            state.features.points, new_pts, tracked, state.generator, settings.motion,
+            use_homography=use_h, min_samples=settings.min_motion_samples,
+        )
+        if counting():  # RANSAC's useful outcomes against its attempts
+            count_on_device("ransac.inliers", est.inliers.sum(), gray.device)
+            count_on_device("ransac.tracked", tracked.sum(), gray.device)
+            count_on_device("ransac.hypotheses", settings.motion.hypotheses, gray.device)
 
     ok = (
         est.ok
@@ -120,11 +135,12 @@ def track(
         # from, and is pulled toward, the previous local mesh
         # (FrameTracker.cpp:274-276), zero-weighted until one exists.
         glob = motion
-        motion, _, _ = mesh_motion.estimate(
-            state.features.points, new_pts, tracked.to(torch.float32), glob, det_size,
-            settings.mesh, prev_local=WarpField(offsets=state.prev_mesh),
-            prev_weight_scale=state.has_prev_mesh.to(torch.float32),
-        )
+        with trace_scope("tracker.mesh"):
+            motion, _, _ = mesh_motion.estimate(
+                state.features.points, new_pts, tracked.to(torch.float32), glob, det_size,
+                settings.mesh, prev_local=WarpField(offsets=state.prev_mesh),
+                prev_weight_scale=state.has_prev_mesh.to(torch.float32),
+            )
         # Gated on ok: after a tracking discontinuity the next solve
         # re-anchors on its global fit.
         prev_mesh = torch.where(ok, motion.offsets - glob.offsets, 0.0)
@@ -140,13 +156,14 @@ def track(
 
     # Detection on the current frame for the next call, with tracked inliers
     # re-seeded into their new cells with priority.
-    propagated = features_mod.rebin(
-        new_pts, state.features.scores, tracked & est.inliers & ok,
-        settings.detector, det_size,
-    )
-    feats, thresholds = features_mod.detect(
-        det, state.thresholds, settings.detector, prev_features=propagated
-    )
+    with trace_scope("tracker.fast"):
+        propagated = features_mod.rebin(
+            new_pts, state.features.scores, tracked & est.inliers & ok,
+            settings.detector, det_size,
+        )
+        feats, thresholds = features_mod.detect(
+            det, state.thresholds, settings.detector, prev_features=propagated
+        )
     new_state = TrackerState(
         pyramid=pyr,
         features=feats,

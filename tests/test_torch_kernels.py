@@ -927,3 +927,67 @@ def test_kernels_launch_on_their_tensors_card(cuda):
     got = spatial.remap_sharded(img, smap, Mesh([cuda, other, cuda, other], ("tile",)), halo=16,
                                 filter_mode="easu")
     assert got.device == cuda and torch.equal(got, warp_kernel.warp(img, smap, fill=0.0))
+
+
+def _graph_kernels(graph, replays: int) -> list[list[str]]:
+    """The kernel names of each of `replays` replays of a captured graph, in
+    order, from a profiler trace of them (a kernel belongs to the replay
+    whose `cudaGraphLaunch` has its correlation id)."""
+    import json
+    import tempfile
+
+    torch.cuda.synchronize()
+    # A profile can miss the first kernels it should record: one replay more
+    # is profiled, and left out.
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays + 1):
+            graph.replay()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    launches = sorted((e["ts"], e["args"]["correlation"]) for e in events
+                      if e.get("name") == "cudaGraphLaunch" and "correlation" in e.get("args", {}))
+    kernels = sorted((e["ts"], e["args"].get("correlation"), e["name"]) for e in events
+                     if e.get("cat") == "kernel")
+    assert len(launches) == replays + 1
+    return [[name for _, c, name in kernels if c == corr] for _, corr in launches[1:]]
+
+
+@pytest.mark.cuda
+def test_stage_marks_only_in_graphs_captured_while_tracing(cuda):
+    """A step captured while tracing runs two marks a stage in every replay,
+    in order, and its device counter's kernels; one captured while not runs
+    neither (a graph of its own, by the step's signature)."""
+    from livevisionkit_tpu_torch.utils import profiling
+    from livevisionkit_tpu_torch.utils.compiled import jit_step
+
+    def fn(state, x):
+        with profiling.trace_scope("tracker"):
+            with profiling.trace_scope("tracker.lk"):
+                y = x * 2.0
+            if profiling.counting():
+                profiling.count_on_device("test.items", (y > 0).sum(), y.device)
+        with profiling.trace_scope("warp"):
+            y = y + 1.0
+        return state + 1.0, y
+
+    step = jit_step(fn)
+    x = torch.ones(1024, device=cuda)
+    state, _ = step(torch.zeros((), device=cuda), x)  # captured with tracing off
+    with profiling.session("marks"), torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        state, _ = step(state, x)  # a second graph, captured while tracing
+    assert step.n_graphs == 2
+    graphs = {key[-1]: g.graph for key, g in step._graphs.items()}
+    plain, traced = _graph_kernels(graphs[False], 3), _graph_kernels(graphs[True], 3)
+    marks = [[profiling.stage_of_kernel(k) for k in ks if profiling.stage_of_kernel(k)] for ks in traced]
+    want = [("tracker", False), ("tracker.lk", False), ("tracker.lk", True), ("tracker", True),
+            ("warp", False), ("warp", True), ("donate", False), ("donate", True)]
+    assert marks == [want] * 3
+    assert not any(profiling.stage_of_kernel(k) for ks in plain for k in ks)
+    # The traced graph holds the plain one's kernels, the marks, and the
+    # counter's compare, sum and add.
+    assert len(traced[0]) == len(plain[0]) + len(want) + 3
+    torch.cuda.synchronize()
