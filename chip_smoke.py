@@ -11,7 +11,9 @@ staged and device-memory block counts, LK solo, over 8 streams and with one leve
 which is K4, the EASU upscale and RCAS solo and over 8 streams at the
 chain tick's 1080p -> 4K shapes, each batched launch bit-equal to 8 solo
 launches and to them at stream stride 0, RCAS beside a clone of its
-frame, and an empty kernel as the floor of every launch's time), then
+frame, and an empty kernel as the floor of every launch's time), RANSAC +
+IRLS (K7) at the flagship's 510 features and 256 hypotheses, solo and
+over 8 streams in one launch, against its plain version, then
 drives the paths over synthetic shaky 1080p clips rendered on the card:
 the flagship stabilizer (`livevisionkit_tpu_torch.flagship_filter`)
 alone; 8 streams of it in one batched step (`MultiStreamFilter`),
@@ -280,18 +282,22 @@ def _counters():
     K3's stream axis is the same wrapper, counted by the path that calls it;
     K2's bilinear launches are counted apart too, and are also in its
     count)."""
-    from livevisionkit_tpu_torch.ops.cuda_kernels import easu_scale, lk, rcas, warp
+    from livevisionkit_tpu_torch.ops.cuda_kernels import easu_scale, lk, ransac, rcas, warp
 
     return {"warp": (warp.warp, "launches"), "warp_batched": (warp.warp_batched, "launches"),
             "warp_batched_bilinear": (warp.warp_batched, "launches_bilinear"),
             "lk_track": (lk.lk_track, "launches"), "lk_level": (lk.lk_track, "launches_one_level"),
             "easu_scale": (easu_scale.easu_scale, "launches"),
             "easu_scale_batched": (easu_scale.easu_scale_batched, "launches"),
-            "rcas": (rcas.rcas, "launches"), "rcas_batched": (rcas.rcas_batched, "launches")}
+            "rcas": (rcas.rcas, "launches"), "rcas_batched": (rcas.rcas_batched, "launches"),
+            "ransac": (ransac.ransac_estimate, "launches")}
 
 
 def _want(**launches) -> dict:
-    """Every kernel's expected launch count: those named, the rest 0."""
+    """Every kernel's expected launch count: those named, the rest 0.  The
+    tracker runs K7 (RANSAC, solo or batched) once wherever it runs K3, so
+    `ransac` defaults to `lk_track`'s count."""
+    launches.setdefault("ransac", launches.get("lk_track", 0))
     return {name: launches.get(name, 0) for name in _counters()}
 
 
@@ -407,6 +413,7 @@ TRACE_GROUPS = {
     "K3/K4": (r"lk_kernel", ("lk_track", "lk_level")),
     "K5": (r"easu_scale_kernel", ("easu_scale", "easu_scale_batched")),
     "K6": (r"rcas_kernel", ("rcas", "rcas_batched")),
+    "K7": (r"ransac_kernel", ("ransac",)),
 }
 
 
@@ -478,8 +485,9 @@ def run_graph(name, eager_step, graph_step, init, inputs, n, per_step, views) ->
       2. timed: n replays from a fresh state (same graph, generator
          reseeded), device ms (CUDA events) and host ms a frame over the
          last `_timed(n)`, from an idle card, no kernel wrapper called;
-      3. traced: GRAPH_TRACE_STEPS replays under torch.profiler (after
-         one replay of its warm-up), each
+      3. traced: GRAPH_TRACE_STEPS replays under torch.profiler (of the
+         graph captured while a profiler records, captured first under a
+         profiler of its own; after one replay of its warm-up), each
          kernel of `per_step` in the trace `per_step` times a replay (by
          its name), with the launches, busy ms and idle share a step and
          the host time of a `cudaGraphLaunch`.
@@ -544,6 +552,15 @@ def run_graph(name, eager_step, graph_step, init, inputs, n, per_step, views) ->
     gpu_ms = start.elapsed_time(end) / timed
     replayed = _launches()
     assert replayed == _want(), f"{name} graph: kernel wrappers called in replays: {replayed}"
+
+    # A step called while a profiler records has a graph of its own, which
+    # holds the stage marks (utils/compiled.py: tracing is part of the
+    # signature), captured at its first such call after two op-by-op
+    # warm-up steps.  That call runs under a profiler of its own, so the
+    # traced window below holds replays only.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        state, out = graph_step(state, *inputs(0))
+        torch.cuda.synchronize()
 
     def trace(state):
         """The kernels and cudaGraphLaunch times of GRAPH_TRACE_STEPS
@@ -1092,6 +1109,145 @@ def check_rcas_x8(dev, rng) -> dict:
           f"median of {RUNS}); floor: torch.clone of the stack {clone_ms:.4f} ms", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "solo_ms": solo_ms, "clone_ms": clone_ms}
+
+
+RANSAC_N, RANSAC_K, RANSAC_ROUNDS = 510, 256, 4  # the flagship's 17 x 30 grid, hypotheses, IRLS
+RANSAC_SIZE = (272, 480)  # the detection frame the features live in
+
+
+def _ransac_problem(dev, rng, n_streams: int = 1):
+    """RANSAC inputs at the flagship's shapes, on the card: RANSAC_N
+    correspondences in the detection frame under a near-rigid homography
+    with 0.3 px noise, 20% gross outliers, 85% of the features valid, and
+    RANSAC_K minimal sets drawn from the valid ones; with `n_streams`, a
+    stack of that many problems."""
+    out = []
+    h_, w_ = RANSAC_SIZE
+    for _ in range(n_streams):
+        src = rng.uniform([0, 0], [w_, h_], size=(RANSAC_N, 2))
+        th, sc = rng.uniform(-0.02, 0.02), 1.0 + rng.uniform(-0.02, 0.02)
+        hm = np.array([[sc * np.cos(th), -sc * np.sin(th), rng.uniform(-8, 8)],
+                       [sc * np.sin(th), sc * np.cos(th), rng.uniform(-8, 8)],
+                       [rng.uniform(-2e-5, 2e-5), rng.uniform(-2e-5, 2e-5), 1.0]])
+        ph = np.concatenate([src, np.ones((RANSAC_N, 1))], 1) @ hm.T
+        dst = ph[:, :2] / ph[:, 2:3] + rng.normal(0, 0.3, (RANSAC_N, 2))
+        bad = rng.uniform(size=RANSAC_N) < 0.2
+        dst[bad] += rng.uniform(-40, 40, (int(bad.sum()), 2))
+        valid = rng.uniform(size=RANSAC_N) < 0.85
+        idx = np.flatnonzero(valid)[rng.integers(0, int(valid.sum()), size=(RANSAC_K, 4))]
+        out.append([torch.from_numpy(src.astype(np.float32)), torch.from_numpy(dst.astype(np.float32)),
+                    torch.from_numpy(valid), torch.from_numpy(idx.astype(np.int64))])
+    tensors = [torch.stack(t).to(dev) for t in zip(*out)]
+    return tensors if n_streams > 1 else [t[0] for t in tensors]
+
+
+def _ransac_ops(n: int, k: int, rounds: int) -> int:
+    """f32 operations of K7 (csrc/ransac.cu) at n points, k hypotheses and
+    `rounds` IRLS rounds of the homography, one per add, sub, mul, div,
+    sqrt, compare and select: per hypothesis the DLT's Gauss-Jordan (per
+    pivot column c: the search, the row swap as selects, the pivot row's
+    scaling and the elimination right of the pivot) and ~20 for the
+    similarity; per hypothesis and point 28 for the homography's
+    truncated-quadratic term and 18 for the similarity's; per round ~165 a
+    point (transfer error and weight ~25, the weighted means 10, the mean
+    distances 16, the normalised pair and the 29 sums of the normal matrix
+    ~115) and ~1,000 for the solve; ~25 a point for the inliers."""
+    dlt = sum(2 * (8 - c) + 2 * (7 - c) * (9 - c) + (8 - c) + 14 * (8 - c) for c in range(8))
+    return k * (dlt + 20) + k * n * (28 + 18) + rounds * (165 * n + 1000) + 25 * n
+
+
+def _ransac_bound(n_streams: int = 1) -> tuple[float, str]:
+    """K7's least time at the flagship's shapes: its operations, or its
+    bytes (each input read once: the point pairs, the valid flags, the
+    minimal sets; each output written once)."""
+    n, k = RANSAC_N, RANSAC_K
+    n_bytes = (16 * n + n + 32 * k + 1) + (36 + n + 4 + 1 + 16)
+    return _bound(n_streams * n_bytes, n_streams * _ransac_ops(n, k, RANSAC_ROUNDS))
+
+
+def _corner_err(m: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest distance (px) between where two (..., 3, 3) models take the
+    detection frame's corners, in f64."""
+    h_, w_ = RANSAC_SIZE
+    c = torch.tensor([[0.0, 0.0, 1.0], [w_ - 1, 0.0, 1.0], [0.0, h_ - 1, 1.0], [w_ - 1, h_ - 1, 1.0]],
+                     dtype=torch.float64, device=m.device)
+    pa, pb = c @ m.double().transpose(-1, -2), c @ ref.double().transpose(-1, -2)
+    return float((pa[..., :2] / pa[..., 2:] - pb[..., :2] / pb[..., 2:]).abs().max())
+
+
+def check_ransac(dev, rng) -> dict:
+    """K7 against its plain version (vision/ransac.estimate_plain) at the
+    flagship's shapes (510 features, 256 hypotheses, 4 IRLS rounds), with
+    the threshold of each configuration (3 and 10 px) and either model:
+    the corner map within 1e-3 px, inliers, `ok`, stability and the
+    winners' indices equal, two launches bit-equal.  Then timed, beside the
+    plain version and the bound, solo and over STREAMS streams in one
+    launch (bit-equal to STREAMS solo launches; the plain version under
+    torch.func.vmap)."""
+    from livevisionkit_tpu_torch.ops.cuda_kernels import ransac as ransac_kernel
+    from livevisionkit_tpu_torch.vision import ransac
+
+    worst = 0.0
+    for tau in (3.0, 10.0):
+        for use_h in (True, False):
+            for _ in range(3):
+                src, dst, valid, idx = _ransac_problem(dev, rng)
+                uh = torch.tensor(use_h, device=dev)
+                args = (src, dst, valid, idx, uh, tau, RANSAC_ROUNDS, 8)
+                got = ransac_kernel.ransac_estimate(*args)
+                want = ransac.estimate_plain(*args)
+                again = ransac_kernel.ransac_estimate(*args)
+                err = _corner_err(got[0], want[0])
+                assert err <= 1e-3, f"K7 tau {tau} use_h {use_h}: corners {err} px from plain"
+                for a, b, name in zip(got[1:], want[1:], ("inliers", "stability", "ok", "winners")):
+                    assert torch.equal(a, b), f"K7 tau {tau} use_h {use_h}: {name} differ from plain"
+                assert all(torch.equal(_bit_view(a), _bit_view(b)) for a, b in zip(got, again)), (
+                    "K7: two launches differ")
+                worst = max(worst, err)
+    src, dst, valid, idx = _ransac_problem(dev, rng)
+    args = (src, dst, valid, idx, torch.tensor(True, device=dev), 3.0, RANSAC_ROUNDS, 8)
+    ms = _median_ms(lambda: ransac_kernel.ransac_estimate(*args))
+    gap_ms = _median_ms(lambda: ransac_kernel.ransac_estimate(*args), spin=False)
+    plain_ms = _median_ms(lambda: ransac.estimate_plain(*args))
+    bound_ms, bound_by = _ransac_bound()
+    print(f"K7 ransac {RANSAC_N} features x {RANSAC_K} hypotheses, {RANSAC_ROUNDS} rounds: corners "
+          f"within {worst:.3e} px of plain over 12 problems (tau 3 and 10, homography and "
+          f"similarity), inliers, ok and winners equal, launches bit-equal; kernel {ms:.4f} ms "
+          f"({gap_ms:.4f} without the device spin), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} "
+          f"ms ({bound_by}: {_ransac_ops(RANSAC_N, RANSAC_K, RANSAC_ROUNDS)} f32 operations) "
+          f"(median of {RUNS})", flush=True)
+    solo_rep = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+
+    src, dst, valid, idx = _ransac_problem(dev, rng, STREAMS)
+    uh = torch.tensor([s % 4 != 3 for s in range(STREAMS)], device=dev)
+    bargs = (src, dst, valid, idx, uh, 3.0, RANSAC_ROUNDS, 8)
+    got = ransac_kernel.ransac_estimate(*bargs)
+    for s in range(STREAMS):
+        solo = ransac_kernel.ransac_estimate(src[s], dst[s], valid[s], idx[s], uh[s], 3.0,
+                                             RANSAC_ROUNDS, 8)
+        assert all(torch.equal(_bit_view(a[s]), _bit_view(b)) for a, b in zip(got, solo)), (
+            f"K7 x{STREAMS}: stream {s} differs from its solo launch")
+    want = ransac.estimate_batched_plain(*bargs)
+    err = _corner_err(got[0], want[0])
+    assert err <= 1e-3 and all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])), (
+        f"K7 x{STREAMS} against plain (vmap): corners {err} px apart, or masks differ")
+    ms_b = _median_ms(lambda: ransac_kernel.ransac_estimate(*bargs))
+    solo_ms = _median_ms(lambda: [ransac_kernel.ransac_estimate(
+        src[s], dst[s], valid[s], idx[s], uh[s], 3.0, RANSAC_ROUNDS, 8) for s in range(STREAMS)])
+    plain_b_ms = _median_ms(lambda: ransac.estimate_batched_plain(*bargs))
+    bound_b, by_b = _ransac_bound(STREAMS)
+    print(f"K7 ransac x{STREAMS}: {STREAMS} streams in one launch, bit-equal to {STREAMS} solo "
+          f"launches, corners within {err:.3e} px of plain (vmap); kernel {ms_b:.4f} ms, "
+          f"{STREAMS} x solo K7 {solo_ms:.4f} ms, plain (vmap) {plain_b_ms:.4f} ms, bound "
+          f"{bound_b:.6f} ms ({by_b}) (median of {RUNS})", flush=True)
+    x8_rep = {"max_abs_err": err, "ms": ms_b, "plain_ms": plain_b_ms, "bound_ms": bound_b,
+              "bound_by": by_b, "solo_ms": solo_ms}
+    return {"solo": solo_rep, "x8": x8_rep}
+
+
+def _bit_view(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
 def _timed(n: int) -> int:
@@ -2569,9 +2725,10 @@ def run_lvk_profile(dev, frames, tmp) -> dict:
 def run_lvk_trace(dev, frames, tmp) -> dict:
     """TRACE_FRAMES frames of the chain inside `DeviceTrace` (the graph
     captured inside the trace, as the CLI's `--trace` does it): the Chrome
-    trace holds every frame span, the runtime's upload / step / download
-    spans and the card's kernels, K1 twice and K3 once a frame (the
-    replays) and a warm-up step."""
+    trace holds a `frame` span a frame, the runtime's read_wait / upload /
+    replay / download spans (utils/profiling.py's names) and the card's
+    kernels, K1 twice and K3 and K7 once a frame (the replays) and a
+    warm-up step."""
     from livevisionkit_tpu_torch.runtime.stream import stream
     from livevisionkit_tpu_torch.utils.compiled import WARMUP_STEPS
     from livevisionkit_tpu_torch.utils.profiling import DeviceTrace
@@ -2584,17 +2741,21 @@ def run_lvk_trace(dev, frames, tmp) -> dict:
     size_mb = os.path.getsize(tr.path) / 2**20
     os.remove(tr.path)
     names = {e.get("name") for e in events}
-    want = {f"frame#{t}" for t in range(TRACE_FRAMES)} | {"upload", "step", "download"}
+    want = {"frame", "read_wait", "upload", "replay", "download"}
     assert want <= names, f"trace lacks {sorted(want - names)}"
+    # A span `frame` a frame (and one for the read that found the end).
+    frame_spans = sum(1 for e in events if e.get("name") == "frame"
+                      and e.get("cat") == "user_annotation")
+    assert frame_spans >= TRACE_FRAMES, f"trace holds {frame_spans} frame spans"
     kernels = sum(1 for e in events if e.get("cat") == "kernel")
     assert kernels > 0, "trace holds no device kernel"
     traced = _traced_groups([(0.0, 0.0, e.get("name", "")) for e in events if e.get("cat") == "kernel"])
     steps = TRACE_FRAMES + WARMUP_STEPS
-    want = {"K1/K2": 2 * steps, "K3/K4": steps, "K5": 0, "K6": 0}
+    want = {"K1/K2": 2 * steps, "K3/K4": steps, "K5": 0, "K6": 0, "K7": steps}
     assert traced == want, f"DeviceTrace: kernels {traced}, want {want}"
     print(f"DeviceTrace: {TRACE_FRAMES} frames, {len(events)} events ({size_mb:.1f} MiB), "
-          f"{kernels} kernels ({traced}: replays and the warm-up step), every frame#t and "
-          f"upload/step/download span present", flush=True)
+          f"{kernels} kernels ({traced}: replays and the warm-up step), {frame_spans} frame "
+          f"spans, the read_wait/upload/replay/download spans present", flush=True)
     return {"kernels": kernels, "traced": traced}
 
 
@@ -2774,7 +2935,8 @@ def run_process_clip(dev, clip) -> dict:
         process_clip(filt, pixels[:k], fmt, device=dev)
         torch.cuda.synchronize()
     traced = _traced_groups(_trace_events(prof)[0])
-    want = {"K1/K2": k + WARMUP_STEPS, "K3/K4": k + WARMUP_STEPS, "K5": 0, "K6": 0}
+    want = {"K1/K2": k + WARMUP_STEPS, "K3/K4": k + WARMUP_STEPS, "K5": 0, "K6": 0,
+            "K7": k + WARMUP_STEPS}
     assert traced == want, f"process_clip trace: kernels {traced}, want {want}"
     print(f"process_clip: {n} 1080p frames of the flagship filter, one graph replayed a frame, "
           f"bit-equal to the op-by-op frame loop, launches at the capture {launches} (the loop's "
@@ -3448,6 +3610,7 @@ def main() -> int:
     easu_b_rep = check_easu_scale_x8(dev, rng)
     rcas_rep = check_rcas(dev, rng)
     rcas_b_rep = check_rcas_x8(dev, rng)
+    ransac_rep = check_ransac(dev, np.random.default_rng(3))
     poses, clips = _shaky_clips_u8(dev, rng)
     # The solo step and the 8-stream tick alternate, since the host's pace
     # wanders between phases of one process.
@@ -3483,8 +3646,10 @@ def main() -> int:
     check_sync_capture(dev)
 
     def entry(name, source, replaces, launches, rep, library_ms=None):
+        # K7 replaces no TPU kernel: XLA fuses the JAX package's RANSAC.
         return {"name": name, "route": "cuda", "source": f"livevisionkit_tpu_torch/csrc/{source}",
-                "replaces": f"livevisionkit_tpu/ops/tpu_kernels/{replaces}", "launches": launches,
+                "replaces": f"livevisionkit_tpu/ops/tpu_kernels/{replaces}" if replaces else None,
+                "launches": launches,
                 "max_abs_err": rep["max_abs_err"], "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                 "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"], "library_ms": library_ms}
 
@@ -3538,6 +3703,14 @@ def main() -> int:
         entry("rcas", "rcas.cu", "rcas.py:108",
               launched("rcas", *paths) + ch["scaler_launches"]["rcas"], rcas_rep),
         entry("rcas_x8", "rcas.cu", "rcas.py:108", launched("rcas_batched", *paths), rcas_b_rep),
+        # K7 wherever the tracker runs, as K3: solo and over 8 streams.
+        entry("ransac", "ransac.cu", None,
+              launched("ransac", sl, ch, me, fc, rt["stream"], rt["clip"])
+              + dbg["solo_launches"]["ransac"] + sv["solo_launches"]["ransac"]
+              + ladder("ransac", *NEW_LADDER), ransac_rep["solo"]),
+        entry("ransac_x8", "ransac.cu", None,
+              launched("ransac", ms, chx, mex, adb) + dbg["multi_launches"]["ransac"]
+              + sv["multi_launches"]["ransac"], ransac_rep["x8"]),
         # K1 once per tile of remap_sharded: the dry run's 4K halo remap.
         entry("warp_tiled", "warp.cu", "warp.py:312", md["dryrun"]["launches"]["warp"],
               md["tiled"]["easu"]),
@@ -3579,6 +3752,7 @@ def main() -> int:
           + " ms (limit 16.7)"
           + f" | K3 x{STREAMS} {lk_b_rep['ms']:.4f} ms"
           f" | K5 x{STREAMS} {easu_b_rep['ms']:.4f} ms | K6 x{STREAMS} {rcas_b_rep['ms']:.4f} ms"
+          f" | K7 {ransac_rep['solo']['ms']:.4f} ms, x{STREAMS} {ransac_rep['x8']['ms']:.4f} ms"
           f" | 4K full chain {fc['gpu_ms']:.4f} / {fc['wall_ms']:.4f}"
           f" | {STREAMS}-stream vs+adb+cas tick {adb['gpu_ms']:.4f} / {adb['wall_ms']:.4f}"
           f" | deblock 1080p {alone['deblock_1080p']['ms']:.4f} ms, 4K {alone['deblock_4k']['ms']:.4f}"

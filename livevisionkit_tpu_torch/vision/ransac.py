@@ -7,6 +7,16 @@ K x N residuals evaluate at once, truncated-quadratic scores reduce per
 hypothesis and `argmax` picks the winner, which IRLS polishes (Hartley-
 normalized weighted DLT, gauge-fixed Cholesky).  Everything stays on the
 device: no value is read back to the host.
+
+The minimal sets are drawn here (`sample_indices`, on the caller's
+generator); everything after the draw goes through the custom op
+``lvk::ransac_estimate``: CUDA tensors launch the RANSAC + IRLS kernel
+(ops/cuda_kernels/ransac.py, one launch), CPU tensors take
+`estimate_plain`, the kernel's reference.  Its vmap rule turns
+`torch.func.vmap` over streams into one call of
+``lvk::ransac_estimate_batched``: one launch for all S streams on the card,
+`estimate_plain` under vmap on the CPU.  The draw stays outside the op, so
+vmap's ``randomness="different"`` still draws per stream.
 """
 
 from __future__ import annotations
@@ -17,6 +27,11 @@ import torch
 
 from livevisionkit_tpu_torch.config import MotionEstimationSettings
 from livevisionkit_tpu_torch.models.homography import Homography, _adjugate, dlt4
+from livevisionkit_tpu_torch.ops.cuda_kernels import ransac as ransac_kernel
+from livevisionkit_tpu_torch.utils.batching import stream_first
+
+_SCHEMA = ("(Tensor src, Tensor dst, Tensor valid, Tensor indices, Tensor use_h, float tau, "
+           "int rounds, int min_samples) -> (Tensor, Tensor, Tensor, Tensor, Tensor)")
 
 
 @dataclass(frozen=True)
@@ -154,30 +169,23 @@ def sample_indices(
     return torch.clamp(idx, max=valid.shape[0] - 1)
 
 
-def estimate(
+def estimate_plain(
     src: torch.Tensor,  # (N, 2) previous-frame points (x, y)
     dst: torch.Tensor,  # (N, 2) tracked positions
     valid: torch.Tensor,  # (N,) bool match mask
-    generator: torch.Generator | None,
-    settings: MotionEstimationSettings,
-    use_homography: torch.Tensor | bool = True,
-    min_samples: int = 8,
-    indices: torch.Tensor | None = None,
-) -> GlobalMotion:
-    """Fit a robust global motion model to the masked correspondences.
-
-    `use_homography` selects the 8-DoF model, else a 4-DoF similarity; both
-    are estimated and the flag (a 0-d bool tensor or a bool) picks one.
-    `indices` ((K, 4) int) replaces the random draw, so a test can feed the
-    same minimal sets to both packages; otherwise `generator` draws them.
-    """
-    k = settings.hypotheses
-    tau = settings.inlier_threshold_px
+    indices: torch.Tensor,  # (K, 4) int64 minimal sets
+    use_h: torch.Tensor,  # 0-d bool: the homography, else the similarity
+    tau: float,
+    rounds: int,
+    min_samples: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The RANSAC kernel's plain version on any device: the safe model
+    (3, 3), the (N,) inliers, the 0-d stability and `ok`, and the (2,)
+    winners' indices (homography, similarity).  Both models are estimated
+    and `use_h` picks one."""
     vf = valid.to(torch.float32)
-
-    idx = sample_indices(valid, k, generator) if indices is None else indices.to(src.device).long()
-    p4 = src[idx]  # (K, 4, 2)
-    q4 = dst[idx]
+    p4 = src[indices]  # (K, 4, 2)
+    q4 = dst[indices]
 
     h_hyp = dlt4(p4, q4)
     err_h = _transfer_errors_sq(h_hyp, src, dst)  # (K, N)
@@ -187,12 +195,12 @@ def estimate(
     err_s = _transfer_errors_sq(s_hyp, src, dst)
     score_s = torch.where(_all_finite(s_hyp), _magsac_score(err_s, vf, tau), float("-inf"))
 
-    use_h = torch.as_tensor(use_homography, dtype=torch.bool, device=src.device)
-    best_h = h_hyp.index_select(0, torch.argmax(score_h).reshape(1))[0]
-    best_s = s_hyp.index_select(0, torch.argmax(score_s).reshape(1))[0]
+    arg_h, arg_s = torch.argmax(score_h), torch.argmax(score_s)
+    best_h = h_hyp.index_select(0, arg_h.reshape(1))[0]
+    best_s = s_hyp.index_select(0, arg_s.reshape(1))[0]
     model = torch.where(use_h, best_h, best_s)
 
-    for _ in range(settings.refine_iterations):
+    for _ in range(rounds):
         e = _transfer_errors_sq(model, src, dst)
         w = vf * torch.clamp(1.0 - e / (tau * tau), min=0.0)
         refined = torch.where(use_h, _weighted_dlt(src, dst, w), _weighted_similarity(src, dst, w))
@@ -209,6 +217,79 @@ def estimate(
         & (inliers.sum() >= min_samples)
     )
     safe_model = torch.where(ok, model, torch.eye(3, dtype=model.dtype, device=model.device))
-    return GlobalMotion(
-        homography=Homography(m=safe_model), inliers=inliers, stability=stability, ok=ok
-    )
+    return safe_model, inliers, stability, ok, torch.stack([arg_h, arg_s])
+
+
+def estimate_batched_plain(src, dst, valid, indices, use_h, tau: float, rounds: int,
+                           min_samples: int) -> tuple[torch.Tensor, ...]:
+    """`estimate_plain` over a leading stream axis of every operand, by
+    torch.func.vmap.  The batched op's CPU path, and the reference the
+    kernel's stream axis is held against on the card."""
+    return torch.func.vmap(
+        lambda a, b, v, i, u: estimate_plain(a, b, v, i, u, tau, rounds, min_samples)
+    )(src, dst, valid, indices, use_h)
+
+
+@torch.library.custom_op("lvk::ransac_estimate", mutates_args=(), schema=_SCHEMA)
+def _ransac_op(src, dst, valid, indices, use_h, tau, rounds, min_samples):
+    """One stream: the RANSAC kernel for CUDA tensors, `estimate_plain` for
+    CPU ones."""
+    if src.is_cuda:
+        return ransac_kernel.ransac_estimate(src.contiguous(), dst.contiguous(), valid.contiguous(),
+                                             indices.contiguous(), use_h, tau, rounds, min_samples)
+    return estimate_plain(src, dst, valid, indices, use_h, tau, rounds, min_samples)
+
+
+@torch.library.custom_op("lvk::ransac_estimate_batched", mutates_args=(), schema=_SCHEMA)
+def _ransac_batched_op(src, dst, valid, indices, use_h, tau, rounds, min_samples):
+    """S streams, stream axis first: one launch of the RANSAC kernel for
+    CUDA tensors, `estimate_plain` under vmap for CPU ones."""
+    if src.is_cuda:
+        return ransac_kernel.ransac_estimate(src, dst, valid, indices, use_h, tau, rounds,
+                                             min_samples)
+    return estimate_batched_plain(src, dst, valid, indices, use_h, tau, rounds, min_samples)
+
+
+@_ransac_op.register_fake
+@_ransac_batched_op.register_fake
+def _ransac_fake(src, dst, valid, indices, use_h, tau, rounds, min_samples):
+    lead = src.shape[:-2]
+    return (src.new_empty(lead + (3, 3)), valid.new_empty(valid.shape),
+            src.new_empty(lead), valid.new_empty(lead), indices.new_empty(lead + (2,)))
+
+
+def _ransac_vmap(info, in_dims, src, dst, valid, indices, use_h, tau, rounds, min_samples):
+    """vmap rule of ``lvk::ransac_estimate``: all streams in one batched
+    call; unbatched operands are broadcast at stream stride 0."""
+    n = info.batch_size
+    ops = [stream_first(t, d, n) for t, d in zip((src, dst, valid, indices, use_h), in_dims[:5])]
+    return _ransac_batched_op(*ops, tau, rounds, min_samples), (0, 0, 0, 0, 0)
+
+
+_ransac_op.register_vmap(_ransac_vmap)
+
+
+def estimate(
+    src: torch.Tensor,  # (N, 2) previous-frame points (x, y)
+    dst: torch.Tensor,  # (N, 2) tracked positions
+    valid: torch.Tensor,  # (N,) bool match mask
+    generator: torch.Generator | None,
+    settings: MotionEstimationSettings,
+    use_homography: torch.Tensor | bool = True,
+    min_samples: int = 8,
+    indices: torch.Tensor | None = None,
+) -> GlobalMotion:
+    """Fit a robust global motion model to the masked correspondences.
+
+    `use_homography` selects the 8-DoF model, else a 4-DoF similarity (a
+    0-d bool tensor or a bool).  `indices` ((K, 4) int) replaces the
+    random draw, so a test can feed the same minimal sets to both packages;
+    otherwise `generator` draws them.
+    """
+    k = settings.hypotheses
+    idx = sample_indices(valid, k, generator) if indices is None else indices.to(src.device).long()
+    use_h = torch.as_tensor(use_homography, dtype=torch.bool, device=src.device)
+    m, inliers, stability, ok, _ = _ransac_op(
+        src, dst, valid, idx, use_h, float(settings.inlier_threshold_px),
+        settings.refine_iterations, min_samples)
+    return GlobalMotion(homography=Homography(m=m), inliers=inliers, stability=stability, ok=ok)
