@@ -146,10 +146,12 @@ SESSION_HISTORY = 32
 # The stages whose boundaries are marked inside a captured graph, in a
 # fixed order: the marker kernel of stage i is `lvk_stage_mark<2 i>` at its
 # start and `lvk_stage_mark<2 i + 1>` at its end.  A dotted name is a child
-# of the stage named by what precedes its last dot.
+# of the stage named by what precedes its last dot.  A new stage goes at
+# the end, so that every other stage keeps its marks.
 STAGES = (
     "ingest", "tracker", "tracker.pyramid", "tracker.lk", "tracker.ransac", "tracker.mesh",
     "tracker.fast", "smoother", "queue", "warp", "deblock", "cas", "egress", "donate",
+    "tracker.mesh.assemble", "tracker.mesh.cg", "tracker.mesh.reweight",
 )
 _STAGE_IDS = {name: i for i, name in enumerate(STAGES)}
 MARK_KERNEL = "lvk_stage_mark"

@@ -136,11 +136,21 @@ def _track(
         # (FrameTracker.cpp:274-276), zero-weighted until one exists.
         glob = motion
         with trace_scope("tracker.mesh"):
-            motion, _, _ = mesh_motion.estimate(
+            motion, mesh_inliers, _ = mesh_motion.estimate(
                 state.features.points, new_pts, tracked.to(torch.float32), glob, det_size,
                 settings.mesh, prev_local=WarpField(offsets=state.prev_mesh),
                 prev_weight_scale=state.has_prev_mesh.to(torch.float32),
             )
+            if counting():  # the solve's inliers, and how far its local part leaves its anchor
+                h, w = gray.shape[-2:]
+                local = motion.offsets - glob.offsets
+                local_px = torch.sqrt((local[0] * (h - 1)) ** 2 + (local[1] * (w - 1)) ** 2)
+                # The farthest node, in hundredths of a frame pixel.
+                local_cpx = torch.round(100.0 * local_px.amax()).to(torch.int64)
+                count_on_device("mesh.inliers", mesh_inliers.sum(), gray.device)
+                count_on_device("mesh.matched", tracked.sum(), gray.device)
+                count_on_device("mesh.local_dev_cpx", local_cpx, gray.device)
+                count_on_device("mesh.solves", 1, gray.device)
         # Gated on ok: after a tracking discontinuity the next solve
         # re-anchors on its global fit.
         prev_mesh = torch.where(ok, motion.offsets - glob.offsets, 0.0)

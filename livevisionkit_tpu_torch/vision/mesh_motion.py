@@ -35,6 +35,13 @@ op here has a batching rule).  The mesh is solved in detection-frame
 pixels and returned normalized.  `solve` is the same fit over features
 split into shards on several devices (parallel/distributed_solve.py);
 `estimate` is its one shard.
+
+Inside the tracker's `tracker.mesh` stage the solve marks three of its
+own (utils/profiling.py), each entered once a round: `tracker.mesh.assemble`
+(the feature operator and the rigidity matrix, then each round's normal
+matrix and right-hand side), `tracker.mesh.cg` (the CG iterations) and
+`tracker.mesh.reweight` (the residuals, the IRLS weights, and after the
+last round the inliers).
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch.nn.functional as F
 
 from livevisionkit_tpu_torch.config import MeshMotionSettings
 from livevisionkit_tpu_torch.models.warp_field import WarpField, _to_norm, _to_px
+from livevisionkit_tpu_torch.utils.profiling import trace_scope
 
 
 def _bilinear_weights(pts: torch.Tensor, mesh_shape: tuple[int, int], size):
@@ -157,11 +165,12 @@ def solve(
     dev = global_fit.offsets.device
 
     feats = []
-    for src, dst, weights in shards:
-        idx, w4 = _bilinear_weights(dst, (hm, wm), size)
-        # Observed backward displacement (dy, dx) in px.
-        d_obs = torch.stack([src[:, 1] - dst[:, 1], src[:, 0] - dst[:, 0]], dim=-1)
-        feats.append((idx, w4, d_obs, weights, _operator(idx, w4, nodes)))
+    with trace_scope("tracker.mesh.assemble"):
+        for src, dst, weights in shards:
+            idx, w4 = _bilinear_weights(dst, (hm, wm), size)
+            # Observed backward displacement (dy, dx) in px.
+            d_obs = torch.stack([src[:, 1] - dst[:, 1], src[:, 0] - dst[:, 0]], dim=-1)
+            feats.append((idx, w4, d_obs, weights, _operator(idx, w4, nodes)))
 
     x_glob = _to_px(global_fit.offsets, size)  # solve in px units
     lam_g = settings.global_weight
@@ -185,8 +194,9 @@ def solve(
 
     # The rigidity term's matrix D_h^T D_h + D_v^T D_v: its stencils
     # applied to each node's unit field (row j is the image of node j).
-    eye = torch.eye(nodes, dtype=torch.float32, device=dev).reshape(nodes, hm, wm)
-    rigidity = (_diff_h_t(_diff_h(eye)) + _diff_v_t(_diff_v(eye))).reshape(nodes, nodes)
+    with trace_scope("tracker.mesh.assemble"):
+        eye = torch.eye(nodes, dtype=torch.float32, device=dev).reshape(nodes, hm, wm)
+        rigidity = (_diff_h_t(_diff_h(eye)) + _diff_v_t(_diff_v(eye))).reshape(nodes, nodes)
 
     def system(normal, lam_tn):
         """The normal matrix of the stacked system (feature, rigidity,
@@ -228,17 +238,22 @@ def solve(
     x = x0
     wfs = [weights for _, _, _, weights, _ in feats]
     for _ in range(settings.irls_rounds):
-        normal = _psum([_normal(a, wf) for (*_, a), wf in zip(feats, wfs)], dev)
-        lam_tn = temporal_diag(normal)
-        x = cg_solve(rhs(wfs, lam_tn), system(normal, lam_tn), x)
-        wfs = [weights * torch.clamp(1.0 - e2 / tau2, min=0.0)
-               for (_, _, _, weights, _), e2 in zip(feats, err2(x))]
+        with trace_scope("tracker.mesh.assemble"):
+            normal = _psum([_normal(a, wf) for (*_, a), wf in zip(feats, wfs)], dev)
+            lam_tn = temporal_diag(normal)
+            b, k = rhs(wfs, lam_tn), system(normal, lam_tn)
+        with trace_scope("tracker.mesh.cg"):
+            x = cg_solve(b, k, x)
+        with trace_scope("tracker.mesh.reweight"):
+            wfs = [weights * torch.clamp(1.0 - e2 / tau2, min=0.0)
+                   for (_, _, _, weights, _), e2 in zip(feats, err2(x))]
 
     inliers, res_sum, n_matched = [], [], []
-    for (_, _, _, weights, _), e2 in zip(feats, err2(x)):
-        matched = weights > 0
-        inliers.append((e2 < tau2) & matched)
-        res_sum.append((torch.sqrt(e2) * matched).sum())
-        n_matched.append(matched.sum())
-    mean_res = _psum(res_sum, dev) / torch.clamp(_psum(n_matched, dev), min=1)
+    with trace_scope("tracker.mesh.reweight"):
+        for (_, _, _, weights, _), e2 in zip(feats, err2(x)):
+            matched = weights > 0
+            inliers.append((e2 < tau2) & matched)
+            res_sum.append((torch.sqrt(e2) * matched).sum())
+            n_matched.append(matched.sum())
+        mean_res = _psum(res_sum, dev) / torch.clamp(_psum(n_matched, dev), min=1)
     return WarpField(offsets=_to_norm(x, size)), inliers, mean_res
