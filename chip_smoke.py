@@ -13,7 +13,9 @@ chain tick's 1080p -> 4K shapes, each batched launch bit-equal to 8 solo
 launches and to them at stream stride 0, RCAS beside a clone of its
 frame, and an empty kernel as the floor of every launch's time), RANSAC +
 IRLS (K7) at the flagship's 510 features and 256 hypotheses, solo and
-over 8 streams in one launch, against its plain version, then
+over 8 streams in one launch, against its plain version, the deblocker's
+kernels (K8: the 5 x 5 median alone at the 4K pooled 3x540x960, the
+reduce + blend pair at 3x2160x3840) against theirs, then
 drives the paths over synthetic shaky 1080p clips rendered on the card:
 the flagship stabilizer (`livevisionkit_tpu_torch.flagship_filter`)
 alone; 8 streams of it in one batched step (`MultiStreamFilter`),
@@ -281,8 +283,9 @@ def _counters():
     adds one to where it launches (K4 is K3's one-level call, counted apart;
     K3's stream axis is the same wrapper, counted by the path that calls it;
     K2's bilinear launches are counted apart too, and are also in its
-    count)."""
-    from livevisionkit_tpu_torch.ops.cuda_kernels import easu_scale, lk, ransac, rcas, warp
+    count; a `deblock` call is K8's two launches, the reduce and the
+    blend)."""
+    from livevisionkit_tpu_torch.ops.cuda_kernels import deblock, easu_scale, lk, ransac, rcas, warp
 
     return {"warp": (warp.warp, "launches"), "warp_batched": (warp.warp_batched, "launches"),
             "warp_batched_bilinear": (warp.warp_batched, "launches_bilinear"),
@@ -290,7 +293,8 @@ def _counters():
             "easu_scale": (easu_scale.easu_scale, "launches"),
             "easu_scale_batched": (easu_scale.easu_scale_batched, "launches"),
             "rcas": (rcas.rcas, "launches"), "rcas_batched": (rcas.rcas_batched, "launches"),
-            "ransac": (ransac.ransac_estimate, "launches")}
+            "ransac": (ransac.ransac_estimate, "launches"),
+            "median_blur": (deblock.median_blur, "launches"), "deblock": (deblock.deblock, "launches")}
 
 
 def _want(**launches) -> dict:
@@ -414,6 +418,9 @@ TRACE_GROUPS = {
     "K5": (r"easu_scale_kernel", ("easu_scale", "easu_scale_batched")),
     "K6": (r"rcas_kernel", ("rcas", "rcas_batched")),
     "K7": (r"ransac_kernel", ("ransac",)),
+    "K8 reduce": (r"deblock_reduce_kernel", ("deblock",)),
+    "K8 blend": (r"deblock_blend_kernel", ("deblock",)),
+    "K8 median": (r"median_kernel", ("median_blur",)),
 }
 
 
@@ -1246,6 +1253,90 @@ def check_ransac(dev, rng) -> dict:
     return {"solo": solo_rep, "x8": x8_rep}
 
 
+def check_deblock(dev, rng) -> dict:
+    """K8 against its plain versions: the median kernel alone at the 4K
+    deblocker's pooled shape (3 x 540 x 960 f32, 5 x 5) bit-equal to
+    resample.median_blur_plain, and the deblocker's two kernels at 3 x 2160
+    x 3840 f32 (a texture on the 8-bit grid with the blocky staircase, so
+    flat blocks smooth fully and textured ones keep) within 1e-6 of
+    filters/deblocking.deblock_plain away from the blocks whose 255
+    measure is within 1e-4 of an integer 1..L (grown by half a block), two
+    launches bit-equal.  Each timed beside its plain version, its bound
+    (the median: 12.4 MB moved, or its min/max operations; the pair: the
+    frame read twice and written once with the pooled frame and the keep
+    map, ~311 MB) and torch.median over the 25 stacked shifted copies, the
+    library call the plain median spends its time in."""
+    import torch.nn.functional as F
+
+    from livevisionkit_tpu_torch import Frame
+    from livevisionkit_tpu_torch.filters import deblocking
+    from livevisionkit_tpu_torch.ops import resample
+    from livevisionkit_tpu_torch.ops.cuda_kernels import deblock as deblock_kernel
+    from livevisionkit_tpu_torch.ops.cuda_kernels.median_net import median_network
+    from livevisionkit_tpu_torch.types import PixelFormat
+
+    block, scaling, ksize, levels = BLOCK, 4, 5, 3
+    px = rcas_input(dev, rng)
+    x0, stair = _staircase(OUT, dev)
+    px[0, :, x0:] = stair
+    px = torch.round(px.clamp(0.0, 1.0) * 255.0) / 255.0
+    small = resample.avg_pool(px, scaling).contiguous()
+    n_small = small.numel()
+
+    got = deblock_kernel.median_blur(small, ksize)
+    want = resample.median_blur_plain(small, ksize)
+    assert torch.equal(_bit_view(got), _bit_view(want)), "K8 median differs from plain"
+    r = ksize // 2
+    h, w = small.shape[-2:]
+    padded = F.pad(small[None], (r, r, r, r), mode="reflect")[0]
+    stack = torch.stack([padded[..., dy:dy + h, dx:dx + w] for dy in range(ksize)
+                         for dx in range(ksize)])
+    med_ops = sum(lo + hi for _, _, lo, hi in median_network(ksize * ksize)) * n_small
+    med = {"max_abs_err": 0.0,
+           "ms": _median_ms(lambda: deblock_kernel.median_blur(small, ksize)),
+           "plain_ms": _median_ms(lambda: resample.median_blur_plain(small, ksize)),
+           "library_ms": _median_ms(lambda: torch.median(stack, dim=0))}
+    del stack, padded
+    med["bound_ms"], med["bound_by"] = _bound(4 * 2 * n_small, med_ops)
+    print(f"K8 median_blur 5x5 3x{h}x{w}: bit-equal to plain; kernel {med['ms']:.4f} ms, plain "
+          f"{med['plain_ms']:.4f} ms, torch.median over the stack {med['library_ms']:.4f} ms, "
+          f"bound {med['bound_ms']:.4f} ms ({med['bound_by']}: {8 * n_small / 1e6:.1f} MB, "
+          f"{med_ops / 1e6:.0f} M min/max), share {100 * med['bound_ms'] / med['ms']:.1f}% "
+          f"(median of {RUNS})", flush=True)
+
+    yuv = PixelFormat.YUV
+    args = (None, block, scaling, ksize, levels)
+    got = deblock_kernel.deblock(px, *args)
+    again = deblock_kernel.deblock(px, *args)
+    want = deblocking.deblock_plain(px, yuv, block, scaling, ksize, levels)
+    assert torch.equal(_bit_view(got), _bit_view(again)), "K8 deblock: two launches differ"
+    near = _deblock_near(Frame.create(px, fmt=yuv), block, levels)
+    away = ~_grown(near, block, block // 2, OUT)
+    err = float((got - want).abs()[:, away].max())
+    assert err <= 1e-6, f"K8 deblock differs from plain by {err} > 1e-6 away from near blocks"
+    moved = float((got - px).abs().max())
+    assert moved > 1e-3, f"K8 deblock changed no pixel by more than {moved}"
+    del got, again, want
+    n = px.numel()
+    n_keep = -(-OUT[0] // block) * -(-OUT[1] // block)
+    pair_bytes = 4 * (3 * n + 2 * n_small + 2 * n_keep)
+    pix_ops = (OUT[0] * OUT[1]) * (3 * 16 + 16)  # per plane the bilinear and blend; keep's upsample
+    pair = {"max_abs_err": err, "ms": _median_ms(lambda: deblock_kernel.deblock(px, *args)),
+            "gap_ms": _median_ms(lambda: deblock_kernel.deblock(px, *args), spin=False),
+            "plain_ms": _median_ms(lambda: deblocking.deblock_plain(px, yuv, block, scaling,
+                                                                    ksize, levels)),
+            "library_ms": med["library_ms"], "near_blocks": int(near.sum())}
+    pair["bound_ms"], pair["bound_by"] = _bound(pair_bytes, med_ops + pix_ops)
+    floor_ms = 4 * 2 * n / PEAK_BYTES_S * 1e3
+    print(f"K8 deblock (reduce + blend) 3x{OUT[0]}x{OUT[1]}: max|err| {err:.3e} against plain away "
+          f"from {pair['near_blocks']} of {near.numel()} near blocks, launches bit-equal; kernels "
+          f"{pair['ms']:.4f} ms ({pair['gap_ms']:.4f} without the device spin), plain "
+          f"{pair['plain_ms']:.4f} ms, bound {pair['bound_ms']:.4f} ms ({pair['bound_by']}: "
+          f"{pair_bytes / 1e6:.1f} MB; the frame in and out once, {floor_ms:.4f} ms), share "
+          f"{100 * pair['bound_ms'] / pair['ms']:.1f}% (median of {RUNS})", flush=True)
+    return {"median": med, "deblock": pair}
+
+
 def _bit_view(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
@@ -1762,10 +1853,12 @@ TOOL_ROWS = {
 TOOL_LAUNCHES = {
     "bench": {"warp": 1, "lk_track": 1},
     # 10 stabilizer configs (the 4K chain's included), the scaler.
-    "bench_matrix": {"warp": 10, "lk_track": 10, "easu_scale": 1, "rcas": 1},
+    # 1080p_deblock, 4k_deblock and the 4K chain: K8's deblocker.
+    "bench_matrix": {"warp": 10, "lk_track": 10, "easu_scale": 1, "rcas": 1, "deblock": 3},
     "profile_stages": {"warp": 2, "lk_track": 2},  # full step, track; warp.apply
     "profile_tracker": {"lk_track": 2},  # track, optical_flow.track (solo or batched)
-    "profile_enhance": {"easu_scale": 2, "rcas": 2},
+    # median5@270p and full-fused: resample.median_blur, K8's median.
+    "profile_enhance": {"easu_scale": 2, "rcas": 2, "median_blur": 2},
     # The bilinear tick's K2 launch is one of the two.
     "profile_serving_stages": {"warp_batched": 2, "warp_batched_bilinear": 1, "lk_track": 3},
     # For each filter and frame type: warp.apply, warpfield.apply,
@@ -2161,7 +2254,7 @@ def run_full_chain(dev, rng, profile_dir: str | None) -> dict:
     _reset_launches()
     state, gpu_ms, wall_ms = _drive(filt, state, (frame(t) for t in range(n)), keep, n=n)
     launches = _launches()
-    assert launches == _want(warp=n, lk_track=n), f"full chain: kernel launches {launches}"
+    assert launches == _want(warp=n, lk_track=n, deblock=n), f"full chain: kernel launches {launches}"
     valid = [bool(v) for v in valids]
     assert valid == [t >= delay for t in range(n)], f"full chain: valid flags {valid}"
     assert all(bool(f) for f in finite), "full chain: non-finite output pixels"
@@ -2188,7 +2281,7 @@ def run_full_chain(dev, rng, profile_dir: str | None) -> dict:
     smap = state[0].correction.sample_map(UHD).contiguous()
     del state
     graph = run_graph("full_chain", filt.step, jit_step(filt.step), lambda: filt.init(spec, device=dev),
-                      lambda t: (frame(t),), n, {"warp": 1, "lk_track": 1},
+                      lambda t: (frame(t),), n, {"warp": 1, "lk_track": 1, "deblock": 1},
                       lambda st, out: [out.pixels, out.valid, out.timestamp, st[0].correction.offsets])
 
     img_u8 = clip[-1].contiguous()
@@ -2394,13 +2487,14 @@ def check_warp_c4(dev, rng) -> tuple[dict, dict]:
 def run_adb_cas_multistream(dev, poses, clips, profile_dir: str | None) -> dict:
     """STREAMS flagship streams through the JAX package's multi-chip dry
     run chain `vs + adb + cas` (__graft_entry__.py:94-128) for ADB_CAS_TICKS
-    ticks: one K2 and one K3 launch a tick."""
+    ticks: one K2, one K3 and one K8 deblock call (the STREAMS streams'
+    deblockers in its two launches) a tick."""
     import livevisionkit_tpu_torch as lvk
 
     n = ADB_CAS_TICKS
     chain = lvk.CompositeFilter((lvk.flagship_filter(), lvk.DeblockingFilter(), lvk.CASFilter()))
     return run_streams("adb_cas_multistream", chain, dev, poses, clips, n,
-                       _want(warp_batched=n, lk_track=n), profile_dir)
+                       _want(warp_batched=n, lk_track=n, deblock=n), profile_dir)
 
 
 class _Lockstep:
@@ -2641,7 +2735,7 @@ def run_lvk_stream(dev, frames, tmp) -> dict:
                if shape != (3, H, W) or not (-RANGE_EPS <= lo and hi <= 1.0 + RANGE_EPS)]
         assert not bad, f"lvk stream ({mode}): outputs {bad} not finite (3, {H}, {W}) in [0, 1] +- {RANGE_EPS}"
         per = WARMUP_STEPS + 1 if jit else n
-        want = _want(warp=2 * per, lk_track=per)
+        want = _want(warp=2 * per, lk_track=per, deblock=per)
         assert launches == want, f"lvk stream ({mode}): launches {launches}, want {want}"
         ft, q = stats.frame_time, stats.latency_quantiles()
         rep = {"launches": launches, "fps": stats.frames_out / wall, "fps_stopwatch": stats.fps,
@@ -2679,7 +2773,7 @@ def run_lvk_stream(dev, frames, tmp) -> dict:
     spec = lvk.FrameSpec(H, W, 3, fmt)
     rep["graph"] = run_graph("lvk_chain", filt.step, jit_step(filt.step),
                              lambda: filt.init(spec, device=dev), lambda t: (frame(t),), n,
-                             {"warp": 2, "lk_track": 1},
+                             {"warp": 2, "lk_track": 1, "deblock": 1},
                              lambda st, out: [out.pixels, out.valid, out.timestamp,
                                               st[1].correction.offsets])
     rep["eager"] = {k: v for k, v in eager.items() if k != "digests"}
@@ -2751,7 +2845,8 @@ def run_lvk_trace(dev, frames, tmp) -> dict:
     assert kernels > 0, "trace holds no device kernel"
     traced = _traced_groups([(0.0, 0.0, e.get("name", "")) for e in events if e.get("cat") == "kernel"])
     steps = TRACE_FRAMES + WARMUP_STEPS
-    want = {"K1/K2": 2 * steps, "K3/K4": steps, "K5": 0, "K6": 0, "K7": steps}
+    want = {"K1/K2": 2 * steps, "K3/K4": steps, "K5": 0, "K6": 0, "K7": steps,
+            "K8 reduce": steps, "K8 blend": steps, "K8 median": 0}
     assert traced == want, f"DeviceTrace: kernels {traced}, want {want}"
     print(f"DeviceTrace: {TRACE_FRAMES} frames, {len(events)} events ({size_mb:.1f} MiB), "
           f"{kernels} kernels ({traced}: replays and the warm-up step), {frame_spans} frame "
@@ -2936,7 +3031,7 @@ def run_process_clip(dev, clip) -> dict:
         torch.cuda.synchronize()
     traced = _traced_groups(_trace_events(prof)[0])
     want = {"K1/K2": k + WARMUP_STEPS, "K3/K4": k + WARMUP_STEPS, "K5": 0, "K6": 0,
-            "K7": k + WARMUP_STEPS}
+            "K7": k + WARMUP_STEPS, "K8 reduce": 0, "K8 blend": 0, "K8 median": 0}
     assert traced == want, f"process_clip trace: kernels {traced}, want {want}"
     print(f"process_clip: {n} 1080p frames of the flagship filter, one graph replayed a frame, "
           f"bit-equal to the op-by-op frame loop, launches at the capture {launches} (the loop's "
@@ -3485,10 +3580,11 @@ def run_dryrun(dev) -> dict:
     launches = _launches()
     one_card = len(set(devices)) == 1
     # One graph a group, of the flagship mesh (its rows share the card: one
-    # group) and of the chain, and K1 once per tile of the halo remap.
+    # group) and of the chain, and K1 once per tile of the halo remap; the
+    # chain's deblocker (K8) once a step of its graph's group.
     per = WARMUP_STEPS + 1
     groups = 2 if one_card else 3
-    want = _want(warp=N_TILES, warp_batched=per * groups, lk_track=per * groups)
+    want = _want(warp=N_TILES, warp_batched=per * groups, lk_track=per * groups, deblock=per)
     assert launches == want, f"dryrun: launches {launches}, want {want}"
     mesh, px = rep["mesh"], rep["frames"]
     n_streams = px.shape[0]
@@ -3611,6 +3707,7 @@ def main() -> int:
     rcas_rep = check_rcas(dev, rng)
     rcas_b_rep = check_rcas_x8(dev, rng)
     ransac_rep = check_ransac(dev, np.random.default_rng(3))
+    deblock_rep = check_deblock(dev, np.random.default_rng(4))
     poses, clips = _shaky_clips_u8(dev, rng)
     # The solo step and the 8-stream tick alternate, since the host's pace
     # wanders between phases of one process.
@@ -3646,7 +3743,8 @@ def main() -> int:
     check_sync_capture(dev)
 
     def entry(name, source, replaces, launches, rep, library_ms=None):
-        # K7 replaces no TPU kernel: XLA fuses the JAX package's RANSAC.
+        # K7 and K8 replace no TPU kernel: XLA fuses the JAX package's
+        # RANSAC and its deblocker.
         return {"name": name, "route": "cuda", "source": f"livevisionkit_tpu_torch/csrc/{source}",
                 "replaces": f"livevisionkit_tpu/ops/tpu_kernels/{replaces}" if replaces else None,
                 "launches": launches,
@@ -3711,6 +3809,16 @@ def main() -> int:
         entry("ransac_x8", "ransac.cu", None,
               launched("ransac", ms, chx, mex, adb) + dbg["multi_launches"]["ransac"]
               + sv["multi_launches"]["ransac"], ransac_rep["x8"]),
+        # K8: the median alone in profile_enhance's rows; the deblocker
+        # (reduce + blend, a call) in the 4K chain, the vs + adb + cas tick,
+        # the lvk stream, the bench matrix's three deblocker configs and
+        # the dry run's chain.
+        entry("median_blur", "deblock.cu", None, bt["launches"]["median_blur"],
+              deblock_rep["median"], library_ms=deblock_rep["median"]["library_ms"]),
+        entry("deblock", "deblock.cu", None,
+              launched("deblock", *paths) + bt["launches"]["deblock"]
+              + md["dryrun"]["launches"]["deblock"], deblock_rep["deblock"],
+              library_ms=deblock_rep["deblock"]["library_ms"]),
         # K1 once per tile of remap_sharded: the dry run's 4K halo remap.
         entry("warp_tiled", "warp.cu", "warp.py:312", md["dryrun"]["launches"]["warp"],
               md["tiled"]["easu"]),
@@ -3753,6 +3861,8 @@ def main() -> int:
           + f" | K3 x{STREAMS} {lk_b_rep['ms']:.4f} ms"
           f" | K5 x{STREAMS} {easu_b_rep['ms']:.4f} ms | K6 x{STREAMS} {rcas_b_rep['ms']:.4f} ms"
           f" | K7 {ransac_rep['solo']['ms']:.4f} ms, x{STREAMS} {ransac_rep['x8']['ms']:.4f} ms"
+          f" | K8 median {deblock_rep['median']['ms']:.4f} ms, deblock 4K "
+          f"{deblock_rep['deblock']['ms']:.4f} ms"
           f" | 4K full chain {fc['gpu_ms']:.4f} / {fc['wall_ms']:.4f}"
           f" | {STREAMS}-stream vs+adb+cas tick {adb['gpu_ms']:.4f} / {adb['wall_ms']:.4f}"
           f" | deblock 1080p {alone['deblock_1080p']['ms']:.4f} ms, 4K {alone['deblock_4k']['ms']:.4f}"

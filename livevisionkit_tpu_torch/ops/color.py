@@ -57,16 +57,23 @@ def _matmul_chw(m, pixels: torch.Tensor, offset) -> torch.Tensor:
     ])
 
 
+def luma_weights(fmt: PixelFormat) -> tuple[float, float, float] | None:
+    """The weights of planes 0, 1 and 2 in `luma` of the format, or None
+    where the luma is plane 0 itself (GRAY, YUV)."""
+    if fmt in (PixelFormat.GRAY, PixelFormat.YUV):
+        return None
+    if fmt is PixelFormat.RGB:
+        return (_LUMA_R, _LUMA_G, _LUMA_B)
+    if fmt is PixelFormat.BGR:
+        return (_LUMA_B, _LUMA_G, _LUMA_R)
+    raise ValueError(f"cannot take luma of {fmt}")
+
+
 def luma(pixels: torch.Tensor, fmt: PixelFormat) -> torch.Tensor:
     """(H, W) luminance from a (C, H, W) tensor of the given format."""
-    if fmt in (PixelFormat.GRAY, PixelFormat.YUV):
+    w = luma_weights(fmt)
+    if w is None:
         return pixels[0]
-    if fmt is PixelFormat.RGB:
-        w = (_LUMA_R, _LUMA_G, _LUMA_B)
-    elif fmt is PixelFormat.BGR:
-        w = (_LUMA_B, _LUMA_G, _LUMA_R)
-    else:
-        raise ValueError(f"cannot take luma of {fmt}")
     return w[0] * pixels[0] + w[1] * pixels[1] + w[2] * pixels[2]
 
 

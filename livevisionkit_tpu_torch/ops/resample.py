@@ -18,6 +18,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from livevisionkit_tpu_torch.ops.cuda_kernels import deblock as deblock_kernel
+
 # 5-tap binomial (Gaussian approx) used by cv::pyrDown.
 _BINOMIAL5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 
@@ -156,11 +158,12 @@ def upsample_linear_int(img: torch.Tensor, factor: tuple[int, int]) -> torch.Ten
     return out.reshape(lead + (h * fy, w * fx))
 
 
-def median_blur(img: torch.Tensor, ksize: int) -> torch.Tensor:
-    """ksize x ksize median filter of trailing (H, W) (cv::medianBlur),
-    reflect-101 padded: the exact median of the ksize^2 shifted views, so
-    it equals the JAX package's selection network bit for bit.  (That
-    network exists because XLA sorts serially on a TPU; not ported.)"""
+def median_blur_plain(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    """`median_blur` as plain PyTorch ops on any device: the exact median
+    of the ksize^2 reflect-101 shifted views, so it equals the JAX
+    package's selection network bit for bit.  (That network exists because
+    XLA sorts serially on a TPU.)  The CPU path, and the reference the
+    median kernel is held against on the card."""
     r = ksize // 2
     h, w = img.shape[-2], img.shape[-1]
     lead = img.shape[:-2]
@@ -169,6 +172,40 @@ def median_blur(img: torch.Tensor, ksize: int) -> torch.Tensor:
     patches = torch.stack([x[..., dy:dy + h, dx:dx + w]
                            for dy in range(ksize) for dx in range(ksize)])
     return torch.median(patches, dim=0).values
+
+
+def median_blur(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    """ksize x ksize median filter of trailing (H, W) (cv::medianBlur),
+    reflect-101 padded.  The custom op ``lvk::median_blur``: a CUDA tensor
+    launches the median kernel (ops/cuda_kernels/deblock.median_blur, K8;
+    f32, ksize 3, 5 or 7, else a ValueError), a CPU tensor takes
+    `median_blur_plain`; the two are equal bit for bit.  Under
+    `torch.func.vmap` the stream axis is one more leading axis of planes."""
+    return _median_op(img, int(ksize))
+
+
+@torch.library.custom_op("lvk::median_blur", mutates_args=(),
+                         schema="(Tensor img, int ksize) -> Tensor")
+def _median_op(img, ksize):
+    """The median kernel for a CUDA tensor, `median_blur_plain` for a CPU
+    one."""
+    if img.is_cuda:
+        return deblock_kernel.median_blur(img.contiguous(), ksize)
+    return median_blur_plain(img, ksize)
+
+
+@_median_op.register_fake
+def _median_fake(img, ksize):
+    return img.new_empty(img.shape)
+
+
+def _median_vmap(info, in_dims, img, ksize):
+    """vmap rule of ``lvk::median_blur``: planes are filtered one by one,
+    so the stream axis is one more leading axis of the same call."""
+    return _median_op(img.movedim(in_dims[0], 0), ksize), 0
+
+
+_median_op.register_vmap(_median_vmap)
 
 
 def avg_pool(img: torch.Tensor, block: int) -> torch.Tensor:

@@ -4,9 +4,10 @@ tools/profile_enhance.py).
 
 Rows, under the JAX tool's names, on a 1080p YUV frame of noise: the
 deblocker's stages on its 16-aligned crop (the 1/4 average pool, the 5x5
-median at 270p, the 4x linear upsample, the blockiness measure of the
-luma and its pools, and the whole filter body fused: keep map, smoothed
-frame and blend), the EASU scale 1080p -> 4K (K5), RCAS at 4K (K6) on a
+median at 270p, K8's median kernel on the card, the 4x linear upsample,
+the blockiness measure of the luma and its pools, and the whole filter
+body of plain stages: keep map, smoothed frame and blend; the filter
+itself runs K8's two kernels), the EASU scale 1080p -> 4K (K5), RCAS at 4K (K6) on a
 linear 2x upsample, and EASU + RCAS in one body.  --size shrinks the
 input for CPU runs (the 2x output follows; the names stay).  Timing:
 tools/profile_stages_torch.graph_time.  `enhance` is the function
