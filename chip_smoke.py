@@ -2701,7 +2701,8 @@ def run_lvk_stream(dev, frames, tmp) -> dict:
     import hashlib
 
     import livevisionkit_tpu_torch as lvk
-    from livevisionkit_tpu_torch.runtime.stream import _ingest, stream
+    from livevisionkit_tpu_torch.runtime.pipeline import ingest
+    from livevisionkit_tpu_torch.runtime.stream import stream
     from livevisionkit_tpu_torch.utils.compiled import WARMUP_STEPS, jit_step
 
     filt = _lvk_chain(tmp)
@@ -2767,7 +2768,7 @@ def run_lvk_stream(dev, frames, tmp) -> dict:
     live = torch.ones((), dtype=torch.bool, device=dev)
 
     def frame(t):
-        return lvk.Frame(pixels=_ingest(clip[t]), timestamp=stamps[t], valid=live,
+        return lvk.Frame(pixels=ingest(clip[t]), timestamp=stamps[t], valid=live,
                          format=lvk.PixelFormat.BGR).reformat(fmt)
 
     spec = lvk.FrameSpec(H, W, 3, fmt)
@@ -3043,7 +3044,7 @@ def run_process_clip(dev, clip) -> dict:
             "eager_wall_ms": e_wall, "traced": traced, "call_ms": (gpu_all, wall_all)}
 
 
-def check_ingest(dev, rng) -> dict:
+def check_ingest_codecs(dev, rng) -> dict:
     """The OBS codecs at 1080p on the card against the same codec on the
     CPU (plain host tensors): uploads of I420, NV12, YUY2, UYVY and BGRA
     within 1 LSB (luma exactly y / 255), and their downloads within 1 LSB;
@@ -3301,7 +3302,7 @@ def run_runtime_slice(dev, clip, profile_dir: str | None) -> dict:
                "trace": run_lvk_trace(dev, frames, tmp),
                "lc": check_lens_correction(dev, clip),
                "clip": run_process_clip(dev, clip),
-               "ingest": check_ingest(dev, rng),
+               "ingest": check_ingest_codecs(dev, rng),
                "checkpoint": run_checkpoint(dev, clip, tmp),
                "calibration": run_calibration(dev, rng)}
     return rep

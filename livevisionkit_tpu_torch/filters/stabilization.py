@@ -36,18 +36,10 @@ from livevisionkit_tpu_torch.filters.base import FrameSpec, VideoFilter, where_s
 from livevisionkit_tpu_torch.models.homography import Homography
 from livevisionkit_tpu_torch.models.warp_field import WarpField
 from livevisionkit_tpu_torch.ops import drawing
+from livevisionkit_tpu_torch.ops.color import from_u8, to_u8
 from livevisionkit_tpu_torch.utils.batching import pytree_dataclass
 from livevisionkit_tpu_torch.utils.profiling import trace_scope
 from livevisionkit_tpu_torch.vision import frame_tracker, path_smoother
-
-
-def _quantize_u8(x: torch.Tensor) -> torch.Tensor:
-    """[0, 1] float -> u8 for delay-queue storage: add 0.5 and truncate."""
-    return torch.clamp(x * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
-
-
-def _dequantize_u8(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.float32) * (1.0 / 255.0)
 
 
 @pytree_dataclass()
@@ -169,7 +161,7 @@ class StabilizationFilter(VideoFilter):
             raise ValueError("frame and state disagree on the alpha plane: init the filter "
                              "with FrameSpec(has_alpha=...) of the stream's frames")
         u8 = s.queue_dtype == "uint8"
-        store = _quantize_u8 if u8 else (lambda x: x)
+        store = to_u8 if u8 else (lambda x: x)
         with trace_scope("queue"):
             payload = {"pixels": store(frame.pixels), "timestamp": frame.timestamp, "valid": frame.valid}
             if has_alpha:
@@ -193,7 +185,7 @@ class StabilizationFilter(VideoFilter):
                 planes = warp.apply(planes, fill=0.0, filter_mode=s.warp_filter, fmt=frame.format)
         if u8:
             with trace_scope("queue"):
-                planes = _dequantize_u8(planes)
+                planes = from_u8(planes)
         out_pixels, out_alpha = (planes[:-1], planes[-1]) if has_alpha else (planes, None)
         if self.debug and self.enabled:
             out_pixels = self._draw_debug(out_pixels, frame.format, result)

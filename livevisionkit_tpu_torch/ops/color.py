@@ -23,6 +23,16 @@ _U_SCALE, _V_SCALE = 0.492, 0.877
 _CHROMA_OFFSET = 0.5
 
 
+def to_u8(x: torch.Tensor) -> torch.Tensor:
+    """[0, 1] float -> u8: scale, add 0.5 and truncate, clamped to [0, 255]."""
+    return torch.clamp(x * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+
+
+def from_u8(x: torch.Tensor) -> torch.Tensor:
+    """u8 -> [0, 1] float32."""
+    return x.to(torch.float32) * (1.0 / 255.0)
+
+
 @functools.cache
 def rgb_to_yuv_matrix() -> tuple[tuple[tuple[float, ...], ...], tuple[float, ...]]:
     """(3x3 matrix, offset) of RGB -> YUV, float32 values as nested tuples."""

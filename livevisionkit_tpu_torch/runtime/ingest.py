@@ -23,20 +23,13 @@ import torch
 
 from livevisionkit_tpu_torch.data.frame import Frame
 from livevisionkit_tpu_torch.ops import resample
+from livevisionkit_tpu_torch.ops.color import from_u8, to_u8
 from livevisionkit_tpu_torch.runtime import native_host
 from livevisionkit_tpu_torch.types import PixelFormat
 
 
 def _upload(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-
-def _norm_u8(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.float32) * (1.0 / 255.0)
-
-
-def _to_u8(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(x * 255.0 + 0.5, 0, 255).to(torch.uint8)
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -47,9 +40,9 @@ def _merge_yuv(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     """Upsample chroma planes to the luma's size and stack (3, H, W) float
     [0, 1]."""
     h, w = y.shape
-    planes = [_norm_u8(y)]
+    planes = [from_u8(y)]
     for c in (u, v):
-        c = _norm_u8(c)
+        c = from_u8(c)
         if tuple(c.shape) != (h, w):
             c = resample.resize(c, (h, w), antialias=False)
         planes.append(c)
@@ -59,7 +52,7 @@ def _merge_yuv(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tenso
 def _yuv_frame(y, u, v, ts, device, alpha=None) -> Frame:
     pixels = _merge_yuv(_upload(y, device), _upload(u, device), _upload(v, device))
     return Frame.create(pixels, timestamp=ts, fmt=PixelFormat.YUV,
-                        alpha=None if alpha is None else _norm_u8(_upload(alpha, device)))
+                        alpha=None if alpha is None else from_u8(_upload(alpha, device)))
 
 
 def upload_i420(
@@ -92,13 +85,13 @@ def upload_ayuv(packed: np.ndarray, ts=0.0, device: torch.device | str = "cuda")
     """Packed 4:4:4 AYUV [A Y U V] (reference P444Ingest, FrameIngest.cpp:
     62-63, 676-686): one upload of the packed bytes and a channel mix on
     the device; the alpha plane is kept."""
-    x = _norm_u8(_upload(packed, device)).permute(2, 0, 1)
+    x = from_u8(_upload(packed, device)).permute(2, 0, 1)
     return Frame.create(x[1:4], timestamp=ts, fmt=PixelFormat.YUV, alpha=x[0])
 
 
 def _from_packed4(hwc4: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
     """(H, W, 4) uint8 -> ((3, H, W) float colour, (H, W) fourth channel)."""
-    x = _norm_u8(_upload(hwc4, device)).permute(2, 0, 1)
+    x = from_u8(_upload(hwc4, device)).permute(2, 0, 1)
     return x[:3], x[3]
 
 
@@ -146,20 +139,20 @@ def upload_uyvy(packed: np.ndarray, ts=0.0, device: torch.device | str = "cuda")
 
 
 def upload_gray(y: np.ndarray, ts=0.0, device: torch.device | str = "cuda") -> Frame:
-    return Frame.create(_norm_u8(_upload(y, device))[None], timestamp=ts, fmt=PixelFormat.GRAY)
+    return Frame.create(from_u8(_upload(y, device))[None], timestamp=ts, fmt=PixelFormat.GRAY)
 
 
 def upload_bgr(hwc: np.ndarray, ts=0.0, device: torch.device | str = "cuda") -> Frame:
-    x = _norm_u8(_upload(hwc, device)).permute(2, 0, 1)
+    x = from_u8(_upload(hwc, device)).permute(2, 0, 1)
     return Frame.create(x, timestamp=ts, fmt=PixelFormat.BGR)
 
 
 def _split(pixels: torch.Tensor, chroma_size: tuple[int, int]):
     """u8 egress planes: full-res luma + chroma resized (antialiased) to
     `chroma_size`."""
-    y = _to_u8(pixels[0])
-    u = _to_u8(resample.resize(pixels[1], chroma_size, antialias=True))
-    v = _to_u8(resample.resize(pixels[2], chroma_size, antialias=True))
+    y = to_u8(pixels[0])
+    u = to_u8(resample.resize(pixels[1], chroma_size, antialias=True))
+    v = to_u8(resample.resize(pixels[2], chroma_size, antialias=True))
     return _host(y), _host(u), _host(v)
 
 
@@ -205,7 +198,7 @@ def download_i40a(frame: Frame):
     fill_plane(255) on download into alpha formats (FrameIngest.cpp:198+)."""
     y, u, v = download_i420(frame)
     if frame.alpha is not None:
-        a = _host(_to_u8(frame.alpha))
+        a = _host(to_u8(frame.alpha))
     else:
         a = np.full(y.shape, 255, np.uint8)
     return y, u, v, a
@@ -224,7 +217,7 @@ def download_ayuv(frame: Frame) -> np.ndarray:
     if frame.format is not PixelFormat.YUV:
         raise ValueError(f"download_ayuv needs a YUV frame, got {frame.format}")
     planes = torch.cat([_alpha_or_opaque(frame)[None], frame.pixels])
-    return _host(_to_u8(planes.permute(1, 2, 0)))
+    return _host(to_u8(planes.permute(1, 2, 0)))
 
 
 def download_rgba(frame: Frame) -> np.ndarray:
@@ -233,7 +226,7 @@ def download_rgba(frame: Frame) -> np.ndarray:
     if frame.format not in (PixelFormat.RGB, PixelFormat.BGR):
         raise ValueError(f"download_rgba needs an RGB or BGR frame, got {frame.format}")
     planes = torch.cat([frame.pixels, _alpha_or_opaque(frame)[None]])
-    return _host(_to_u8(planes.permute(1, 2, 0)))
+    return _host(to_u8(planes.permute(1, 2, 0)))
 
 
 download_bgra = download_rgba

@@ -7,9 +7,9 @@ processes with no shared batching.  Here the S streams batch into ONE step
 per tick (parallel/streams.py): the step's launches, the warp's and LK's
 included, are paid once per tick for all S streams.
 
-Design, as in the JAX package:
-  * one reader thread per stream feeding a bounded queue (the reference's
-    15-deep input queue, per stream);
+Design, as in the JAX package, on runtime/pipeline.py's threads (a reader
+and a writer a stream), step and in-flight window, shared with the solo
+driver:
   * the main loop assembles a LOCKSTEP BATCH, one frame per live stream,
     uploads it as one (S, H, W, 3) u8 tensor and runs the batched step
     without waiting for the device: on the card one CUDA graph a tick
@@ -19,35 +19,25 @@ Design, as in the JAX package:
     drain=True, so its delay-queue residue emits while the others run; a
     stream that is merely slow gets drain=False bubbles, which FREEZE its
     temporal state (no frame is lost);
-  * a small in-flight window bounds how far the device runs ahead; the
-    driver waits on the oldest pending output, never inside the step, and
-    fans results out to per-stream writer threads.
-
-On a CUDA device a batch goes up from a ring of `inflight + 1` pinned host
-buffers with a non-blocking copy into the graph's static inputs, and
-outputs come back the same way into pinned memory (runtime/transfer.py,
-shared with the solo driver), on the stream that replays the graph.  The
-per-tick timestamps and flags ride in the same upload, so the loop makes
-no synchronizing copy, and `drain` is a per-stream device flag: one graph
-serves live, stalled and draining ticks.
+  * the per-tick timestamps and flags ride in the frames' upload, so the
+    loop makes no synchronizing copy, and `drain` is a per-stream device
+    flag: one graph serves live, stalled and draining ticks.
 """
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
-from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from livevisionkit_tpu_torch.data.frame import Frame
-from livevisionkit_tpu_torch.filters.base import FrameSpec, VideoFilter
+from livevisionkit_tpu_torch.filters.base import VideoFilter
 from livevisionkit_tpu_torch.parallel.streams import MultiStreamFilter, batched
-from livevisionkit_tpu_torch.runtime.stream import _ingest
-from livevisionkit_tpu_torch.runtime.transfer import Uploader, download
+from livevisionkit_tpu_torch.runtime import pipeline
 from livevisionkit_tpu_torch.types import PixelFormat
 from livevisionkit_tpu_torch.utils.compiled import jit_step
 from livevisionkit_tpu_torch.utils import profiling
@@ -120,64 +110,11 @@ def _run(stats, filt, readers, on_output, device, work_format, queue_depth, infl
     sess = stats.session
     multi = MultiStreamFilter(filt, n)
 
-    in_qs = [queue.Queue(maxsize=queue_depth) for _ in range(n)]
-
-    def read_loop(i, reader):
-        with sess.active():
-            frames = iter(reader)
-            count = 0
-            while True:
-                with trace_scope("read"):
-                    item = next(frames, None)
-                if item is None or stop_event.is_set():
-                    break
-                frame, ts = item
-                in_qs[i].put((frame, ts))
-                count += 1
-                if max_frames is not None and count >= max_frames:
-                    break
-            in_qs[i].put(None)  # EOF
-
-    for i, r in enumerate(readers):
-        threading.Thread(target=read_loop, args=(i, r), daemon=True).start()
-
-    out_qs = [queue.Queue(maxsize=queue_depth) for _ in range(n)]
-    writer_exc: list[BaseException] = []
-
-    def write_loop(i):
-        with sess.active():
-            while True:
-                item = out_qs[i].get()
-                if item is None:
-                    return
-                try:
-                    if on_output is not None:
-                        with trace_scope("write"):
-                            on_output(i, *item)
-                except BaseException as e:  # re-raised by the driver below
-                    writer_exc.append(e)
-                    stop_event.set()
-                    return
-
-    writers = [threading.Thread(target=write_loop, args=(i,), daemon=True) for i in range(n)]
-    for w in writers:
-        w.start()
-
-    bgr = PixelFormat.BGR
-
-    def one_step(state, raw_u8, ts, live, drain):
-        with trace_scope("ingest"):
-            frame = Frame(pixels=_ingest(raw_u8), timestamp=ts, valid=live, format=bgr).reformat(work_format)
-        state, out = filt.step(state, frame, drain=drain)
-        with trace_scope("egress"):
-            out = out.reformat(bgr)
-        return state, (out.pixels, out.timestamp, out.valid)
-
     # `drain` is a per-stream flag: an EOF'd slot DRAINS its delay queue
     # (bubbles advance it with identity motion, emitting the residue while
     # other streams still run), a merely stalled slot FREEZES it (no frame
     # loss; see VideoFilter.step).  The terminal flush drains all.
-    batch_step = batched(one_step)
+    batch_step = batched(pipeline.device_step(filt, work_format))
 
     def tick(state, raw_u8, meta):
         """One tick from the upload: (S, H, W, 3) u8 frames and the (S, 3)
@@ -187,45 +124,37 @@ def _run(stats, filt, readers, on_output, device, work_format, queue_depth, infl
     compiled = jit_step(tick) if jit else None
     step = compiled or tick
 
-    states = None
-    upload = None
+    states = window = None
     inputs = None  # the compiled step's static (frames, meta), once captured
-    pending: deque = deque()
 
     def run(raws, tss, lives, drains):
         """Upload one tick and step it."""
         nonlocal states, inputs
         with trace_scope("assemble"):
-            frames, meta = upload.host()
+            frames, meta = window.host()
             np.stack(raws, out=frames)
             meta[:] = np.stack([tss, lives, drains], axis=1)
         with trace_scope("upload"):
-            frames, meta = upload.send(inputs)
+            frames, meta = window.send(inputs)
         with trace_scope("replay"):
             states, out = step(states, frames, meta)
             if compiled is not None and inputs is None:
                 inputs = compiled.static_inputs(states, frames, meta)
         stats.batches += 1
-        with trace_scope("download"):
-            pending.append(download(out))
-        drain(block_all=False)
+        window.push(out, fanout)
 
-    def drain(block_all: bool):
-        while pending and (block_all or len(pending) > inflight):
-            (px, ts, valid), event = pending.popleft()
-            if event is not None:
-                with trace_scope("drain_wait"):
-                    event.synchronize()  # backpressure: the oldest batch only
-            with trace_scope("fanout"):
-                valid_np = valid.numpy()
-                if not valid_np.any():
-                    continue
-                px_np, ts_np = px.numpy(), ts.numpy()
-                for i in range(n):
-                    if valid_np[i]:
-                        stats.frames_out += 1
-                        stats.per_stream_out[i] += 1
-                        out_qs[i].put((px_np[i], float(ts_np[i])))
+    def fanout(host, _t_submit):
+        px, ts, valid = host
+        with trace_scope("fanout"):
+            valid_np = valid.numpy()
+            if not valid_np.any():
+                return
+            px_np, ts_np = px.numpy(), ts.numpy()
+            for i in range(n):
+                if valid_np[i]:
+                    stats.frames_out += 1
+                    stats.per_stream_out[i] += 1
+                    io.put(io.out_qs[i], (px_np[i], float(ts_np[i])))
 
     eof = [False] * n
     drained = [0] * n  # batches dispatched since stream i's EOF
@@ -234,7 +163,7 @@ def _run(stats, filt, readers, on_output, device, work_format, queue_depth, infl
 
     def gather():
         """The next tick's (frames, timestamps, live flags), one slot per
-        stream, or None once every stream has ended."""
+        stream, or None once every stream has ended or the pipeline stops."""
         while not stop_event.is_set() and not all(eof):
             raws, tss, lives = [], [], []
             for i in range(n):
@@ -242,10 +171,10 @@ def _run(stats, filt, readers, on_output, device, work_format, queue_depth, infl
                 if eof[i]:
                     item = None
                 elif slow_stream_timeout is None or last_frame[i] is None:
-                    item = in_qs[i].get()
-                else:
+                    item = io.get(i)
+                else:  # timed: a stop shows at the next pass of the loop
                     try:
-                        item = in_qs[i].get(timeout=slow_stream_timeout)
+                        item = io.in_qs[i].get(timeout=slow_stream_timeout)
                     except queue.Empty:
                         item, stalled = None, True
                 if stalled:
@@ -255,6 +184,8 @@ def _run(stats, filt, readers, on_output, device, work_format, queue_depth, infl
                     tss.append(0.0)
                     lives.append(False)
                 elif item is None:
+                    if stop_event.is_set():
+                        return None  # a thread failed: its reader sends no EOF
                     eof[i] = True
                     if last_frame[i] is None:
                         raise RuntimeError(f"stream {i} produced no frames")
@@ -278,7 +209,8 @@ def _run(stats, filt, readers, on_output, device, work_format, queue_depth, infl
             return raws, tss, lives
         return None
 
-    try:
+    sinks = [None if on_output is None else functools.partial(on_output, i) for i in range(n)]
+    with pipeline.Threads(sess, readers, sinks, stop_event, queue_depth, max_frames) as io:
         with trace_scope("loop"):
             while True:
                 # A tick's span: its wait for a frame of every stream, then
@@ -295,12 +227,9 @@ def _run(stats, filt, readers, on_output, device, work_format, queue_depth, infl
                         if eof[i]:
                             drained[i] += 1
                     if states is None:
-                        h, w = raws[0].shape[:2]
-                        spec = FrameSpec(height=h, width=w, channels=work_format.channels,
-                                         format=work_format)
-                        states = multi.init(spec, device=device)
-                        upload = Uploader([((n, *raws[0].shape), torch.uint8), ((n, 3), torch.float32)],
-                                          device, inflight + 1)
+                        states = multi.init(pipeline.frame_spec(raws[0], work_format), device=device)
+                        window = pipeline.Window([((n, *raws[0].shape), torch.uint8), ((n, 3), torch.float32)],
+                                                 device, inflight)
                     run(raws, tss, lives, eof)
             # Flush: run `delay` bubble batches so frames still inside delay
             # queues emit (the reference's stream() drops them at termination,
@@ -310,13 +239,6 @@ def _run(stats, filt, readers, on_output, device, work_format, queue_depth, infl
                 for _ in range(delay):
                     with trace_scope("tick", stats.batches):
                         run(bubble, [0.0] * n, [False] * n, [True] * n)
-        drain(block_all=True)
-    finally:
-        stop_event.set()
-        for q_ in out_qs:
-            q_.put(None)
-        for w in writers:
-            w.join(timeout=30)
-    if writer_exc:
-        raise writer_exc[0]
+        if window is not None:
+            window.drain(fanout)
     stats.graphs = compiled.n_graphs if compiled is not None else 0

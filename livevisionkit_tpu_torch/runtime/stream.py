@@ -7,33 +7,17 @@ Reference parity: ``VideoFilter::stream`` (reference Filters/VideoFilter
 and the CLI driver ``VideoProcessor::run`` (reference
 Modules/VideoEditor/VideoProcessor.cpp:148-230).
 
-On a CUDA device the filter loop never waits inside a step:
-
-  * a reader thread keeps a bounded queue of decoded host frames (the
-    reference's 15-frame input queue);
-  * the main loop copies each frame into a ring of `inflight + 1` pinned
-    host buffers and uploads it with a non-blocking copy into the step's
-    static inputs; the step (repack u8 HWC -> planar float, convert to the
-    work format, the filter's step, convert back) is ONE CUDA graph
-    replayed a frame (utils/compiled.jit_step), as the JAX runtime
-    dispatches one compiled program a frame, and never waits for the
-    device;
-  * the output's pixels, timestamp and valid flag come back together by a
-    non-blocking copy into pinned memory behind one CUDA event
-    (runtime/transfer.py, shared with the multi-stream driver), on the
-    stream that replays the graph, so the next replay, which overwrites
-    the graph's outputs, is ordered after the copy;
-  * `drain` waits on the oldest pending event only once more than
-    `inflight` outputs are pending: that wait is the backpressure;
-  * a writer thread encodes drained frames (the reference's output thread).
+The pipeline (reader and writer threads, the step around the filter, the
+in-flight window, the shutdown) is runtime/pipeline.py's, shared with the
+multi-stream driver; on a CUDA device its step is ONE CUDA graph replayed a
+frame (utils/compiled.jit_step), as the JAX runtime dispatches one compiled
+program a frame.
 """
 
 from __future__ import annotations
 
-import queue
 import threading
 import time
-from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -41,9 +25,9 @@ import numpy as np
 import torch
 
 from livevisionkit_tpu_torch.data.frame import Frame
-from livevisionkit_tpu_torch.filters.base import CompositeFilter, FrameSpec, VideoFilter
+from livevisionkit_tpu_torch.filters.base import CompositeFilter, VideoFilter
+from livevisionkit_tpu_torch.runtime import pipeline
 from livevisionkit_tpu_torch.runtime.hud import draw_frame_time_hud
-from livevisionkit_tpu_torch.runtime.transfer import Uploader, download
 from livevisionkit_tpu_torch.types import PixelFormat
 from livevisionkit_tpu_torch.utils.compiled import jit_step
 from livevisionkit_tpu_torch.utils import profiling
@@ -84,11 +68,6 @@ class StreamStats:
         arr = np.sort(np.asarray(self.latencies)) * 1e3
         q = lambda p: float(arr[min(len(arr) - 1, int(p * len(arr)))])  # noqa: E731
         return {"p50_ms": q(0.50), "p95_ms": q(0.95), "p99_ms": q(0.99)}
-
-
-def _ingest(bgr_hwc_u8: torch.Tensor) -> torch.Tensor:
-    """On-device repack: HWC u8 BGR -> (3, H, W) float32 [0, 1]."""
-    return (bgr_hwc_u8.to(torch.float32) * (1.0 / 255.0)).permute(2, 0, 1)
 
 
 def stream(
@@ -140,65 +119,6 @@ def _run(stats, filt, reader, on_output, work_format, queue_depth, inflight, max
          stop_event, profile_filters, hud_budget_ms, device, jit) -> None:
     """`stream`'s pipeline, inside its session."""
     sess = stats.session
-    in_q: queue.Queue = queue.Queue(maxsize=queue_depth)
-    reader_exc: list[BaseException] = []
-
-    def _put_with_stop(item) -> bool:
-        """Bounded put that aborts when the pipeline stops (a plain blocking
-        put would strand the reader on a full queue after an abort)."""
-        while not stop_event.is_set():
-            try:
-                in_q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def read_loop():
-        n = 0
-        try:
-            with sess.active():
-                frames = iter(reader)
-                while True:
-                    with trace_scope("read"):
-                        item = next(frames, None)
-                    if item is None or stop_event.is_set():
-                        break
-                    frame, ts = item
-                    if not _put_with_stop((frame, ts)):
-                        return
-                    n += 1
-                    if max_frames is not None and n >= max_frames:
-                        break
-        except BaseException as e:  # surface decode errors like encode ones
-            reader_exc.append(e)
-            stop_event.set()
-        _put_with_stop(None)  # EOF
-
-    reader_thread = threading.Thread(target=read_loop, daemon=True)
-    reader_thread.start()
-
-    out_q: queue.Queue = queue.Queue(maxsize=queue_depth)
-    writer_exc: list[BaseException] = []
-
-    def write_loop():
-        with sess.active():
-            while True:
-                item = out_q.get()
-                if item is None:
-                    return
-                try:
-                    if on_output is not None:
-                        with trace_scope("write"):
-                            on_output(*item)
-                except BaseException as e:  # surface encode errors to caller
-                    writer_exc.append(e)
-                    stop_event.set()
-                    return
-
-    writer_thread = threading.Thread(target=write_loop, daemon=True)
-    writer_thread.start()
-
     bgr = PixelFormat.BGR
     live = torch.ones((), dtype=torch.bool, device=device)
 
@@ -215,18 +135,14 @@ def _run(stats, filt, reader, on_output, work_format, queue_depth, inflight, max
         for k in sub_keys:
             stats.filter_times[k] = Stopwatch()
 
+    device_step = pipeline.device_step(filt, work_format)
+
     def full_step(state, raw, meta):
-        with trace_scope("ingest"):
-            frame = Frame(pixels=_ingest(raw), timestamp=meta[0], valid=live,
-                          format=bgr).reformat(work_format)
-        state, out = filt.step(state, frame)
-        with trace_scope("egress"):
-            out = out.reformat(bgr)
-        return state, (out.pixels, out.timestamp, out.valid)
+        return device_step(state, raw, meta[0], live, False)
 
     def profile_step(state, raw, meta):
         """Each filter of the chain stepped and waited for on its own."""
-        frame = Frame(pixels=_ingest(raw), timestamp=meta[0], valid=live,
+        frame = Frame(pixels=pipeline.ingest(raw), timestamp=meta[0], valid=live,
                       format=bgr).reformat(work_format)
         wait()  # the first filter's time is its own
         new_states = []
@@ -244,47 +160,22 @@ def _run(stats, filt, reader, on_output, work_format, queue_depth, inflight, max
     compiled = jit_step(full_step) if jit and sub_filters is None else None
     step = compiled or full_step
 
-    state = None
-    upload = None
+    state = window = None
     inputs = None  # the compiled step's static (raw, meta), once captured
-    pending: deque = deque()  # ((pixels, ts, valid) on the host, event, t_submit)
 
-    def drain(block_all: bool):
-        while pending and (block_all or len(pending) > inflight):
-            (px, ts, valid), event, t_sub = pending.popleft()
-            if event is not None:
-                with trace_scope("drain_wait"):
-                    event.synchronize()  # backpressure: the oldest output only
-            with trace_scope("deliver"):
-                if not bool(valid):
-                    continue
-                out_np = px.numpy()
-                stats.latencies.append(time.perf_counter() - t_sub)
-                if hud_budget_ms is not None:
-                    out_np = draw_frame_time_hud(np.array(out_np), sess.last("frame") * 1e3, hud_budget_ms)
-                stats.frames_out += 1
-                # Stop-aware put: a dead writer leaves the queue full and a
-                # blocking put would hang the pipeline on abort.
-                while not stop_event.is_set():
-                    try:
-                        out_q.put((out_np, float(ts)), timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
+    def deliver(host, t_submit):
+        px, ts, valid = host
+        with trace_scope("deliver"):
+            if not bool(valid):
+                return
+            out_np = px.numpy()
+            stats.latencies.append(time.perf_counter() - t_submit)
+            if hud_budget_ms is not None:
+                out_np = draw_frame_time_hud(np.array(out_np), sess.last("frame") * 1e3, hud_budget_ms)
+            stats.frames_out += 1
+            io.put(io.out_qs[0], (out_np, float(ts)))
 
-    def next_item():
-        """The reader's next (frame, timestamp), None at its end or once the
-        pipeline stops.  Polls, doesn't block: after an abort the reader
-        stops feeding without an EOF sentinel (its puts bail on
-        stop_event), so a blocking get would hang here forever."""
-        while not stop_event.is_set():
-            try:
-                return in_q.get(timeout=0.1)
-            except queue.Empty:
-                continue
-        return None
-
-    try:
+    with pipeline.Threads(sess, [reader], [on_output], stop_event, queue_depth, max_frames) as io:
         with trace_scope("loop"):
             while True:
                 # A frame's span: its wait for the input, then its work
@@ -292,26 +183,20 @@ def _run(stats, filt, reader, on_output, work_format, queue_depth, inflight, max
                 frame_span = trace_scope("frame", stats.frames_in)
                 with frame_span:
                     with trace_scope("read_wait"):
-                        item = next_item()
+                        item = io.get(0)
                     if item is None:
                         frame_span.discard()
                         break
                     raw_np, ts = item
                     if state is None:
-                        spec = FrameSpec(
-                            height=raw_np.shape[0],
-                            width=raw_np.shape[1],
-                            channels=work_format.channels,
-                            format=work_format,
-                        )
-                        state = filt.init(spec, device=device)
-                        upload = Uploader([(raw_np.shape, torch.uint8), ((1,), torch.float32)], device,
-                                          inflight + 1)
+                        state = filt.init(pipeline.frame_spec(raw_np, work_format), device=device)
+                        window = pipeline.Window([(raw_np.shape, torch.uint8), ((1,), torch.float32)],
+                                                 device, inflight)
                     with trace_scope("upload"):
-                        raw_h, ts_h = upload.host()
+                        raw_h, ts_h = window.host()
                         raw_h[...] = raw_np
                         ts_h[0] = ts
-                        raw, meta = upload.send(inputs)
+                        raw, meta = window.send(inputs)
                     with trace_scope("replay"):
                         if sub_filters is None:
                             state, out = step(state, raw, meta)
@@ -319,26 +204,7 @@ def _run(stats, filt, reader, on_output, work_format, queue_depth, inflight, max
                                 inputs = compiled.static_inputs(state, raw, meta)
                         else:
                             state, out = profile_step(state, raw, meta)
-                    with trace_scope("download"):
-                        host, event = download(out)
-                    pending.append((host, event, time.perf_counter()))
                     stats.frames_in += 1
-                    drain(block_all=False)
-        drain(block_all=True)
-    finally:
-        stop_event.set()
-        # Deliver the writer's EOF sentinel without deadlocking: the writer
-        # may still be draining (keep trying) or already dead (give up).
-        for _ in range(300):
-            try:
-                out_q.put(None, timeout=0.1)
-                break
-            except queue.Full:
-                if not writer_thread.is_alive():
-                    break
-        writer_thread.join(timeout=30)
-        reader_thread.join(timeout=5)
-    if writer_exc:
-        raise writer_exc[0]
-    if reader_exc:
-        raise reader_exc[0]
+                    window.push(out, deliver)
+        if window is not None:
+            window.drain(deliver)

@@ -36,7 +36,6 @@ import profile_tracker_torch as pt  # noqa: E402
 
 import livevisionkit_tpu_torch as lt  # noqa: E402
 from livevisionkit_tpu_torch.data.stream_buffer import StreamBuffer  # noqa: E402
-from livevisionkit_tpu_torch.filters import stabilization as stab  # noqa: E402
 from livevisionkit_tpu_torch.ops import color, easu, rcas, resample  # noqa: E402
 from livevisionkit_tpu_torch.parallel.streams import MultiStreamFilter  # noqa: E402
 from livevisionkit_tpu_torch.vision import (  # noqa: E402
@@ -338,9 +337,9 @@ def test_profile_serving_stages_bodies_return_the_direct_calls():
         template = {"pixels": torch.zeros((3, *SIZE), dtype=torch.uint8),
                     "timestamp": torch.zeros(()), "valid": torch.zeros((), dtype=torch.bool)}
         solo = StreamBuffer.create(template, cap).push(
-            {"pixels": stab._quantize_u8(batch[i]), "timestamp": torch.zeros(()),
+            {"pixels": color.to_u8(batch[i]), "timestamp": torch.zeros(()),
              "valid": torch.ones((), dtype=torch.bool)})
-        assert torch.equal(old[i], stab._dequantize_u8(solo.oldest()["pixels"]))
+        assert torch.equal(old[i], color.from_u8(solo.oldest()["pixels"]))
         for k in solo.data:
             assert torch.equal(q.data[k][i], solo.data[k]), k
         assert int(q.count[i]) == int(solo.count) == 1

@@ -32,7 +32,7 @@ import torch.utils._pytree as pytree
 import livevisionkit_tpu_torch as lt
 from livevisionkit_tpu_torch.parallel import dryrun
 from livevisionkit_tpu_torch.parallel import streams as par
-from livevisionkit_tpu_torch.runtime import multistream, offline
+from livevisionkit_tpu_torch.runtime import multistream, offline, pipeline
 from livevisionkit_tpu_torch.runtime import stream as tstream
 from livevisionkit_tpu_torch.utils import compiled
 from livevisionkit_tpu_torch.utils.batching import pytree_dataclass
@@ -244,9 +244,7 @@ def test_process_clip_sharded_compiled_equals_op_by_op():
 def test_uploader_writes_into_given_buffers():
     """`send(out)` copies the filled slot into the caller's tensors (a
     compiled step's static inputs) and hands those back."""
-    from livevisionkit_tpu_torch.runtime.transfer import Uploader
-
-    up = Uploader([((2, 3), torch.uint8), ((1,), torch.float32)], "cpu", 2)
+    up = pipeline.Window([((2, 3), torch.uint8), ((1,), torch.float32)], "cpu", inflight=1)
     dst = [torch.zeros((2, 3), dtype=torch.uint8), torch.zeros(1)]
     for k in range(3):
         raw, meta = up.host()
@@ -270,7 +268,7 @@ def _ingest_loop(filt, frames):
     state = filt.init(lt.FrameSpec(*SIZE, 3, YUV), device="cpu")
     outs = []
     for t, raw in enumerate(frames):
-        fr = lt.Frame(pixels=tstream._ingest(torch.from_numpy(raw)),
+        fr = lt.Frame(pixels=pipeline.ingest(torch.from_numpy(raw)),
                       timestamp=torch.tensor(np.float32(t / 30.0)),
                       valid=torch.ones((), dtype=torch.bool), format=lt.PixelFormat.BGR)
         state, out = filt.step(state, fr.reformat(YUV))

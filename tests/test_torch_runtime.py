@@ -1,11 +1,12 @@
 """Port parity of the streaming runtime: `runtime/stream.stream` against
 the JAX package's `stream` on the same u8 BGR clips (identity and a
 deterministic CAS + conversion chain), its pipeline contract (stabilizer
-delay and order, reader errors, writer aborts, latency quantiles, the HUD,
-per-filter profile keys), and `runtime/offline.process_clip` against the
+delay and order, reader errors and writer aborts under both live drivers,
+latency quantiles, the HUD, per-filter profile keys), and `runtime/offline.process_clip` against the
 JAX `process_clip` and against the port's own frame loop."""
 
 import itertools
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +21,7 @@ from livevisionkit_tpu.runtime import offline as joffline
 from livevisionkit_tpu.runtime import stream as jstream
 from livevisionkit_tpu_torch import config as tcfg
 from livevisionkit_tpu_torch.runtime import hud as thud
+from livevisionkit_tpu_torch.runtime import multistream as tmulti
 from livevisionkit_tpu_torch.runtime import offline as toffline
 from livevisionkit_tpu_torch.runtime import stream as tstream
 
@@ -107,35 +109,86 @@ def test_stream_stabilizer_delay_and_order():
     assert all(np.isfinite(px).all() and px.shape == (3, *SIZE) for px, _ in outs)
 
 
-def test_stream_reader_exception_surfaces():
+def _drive(driver, readers, on_output, **kw):
+    """An identity chain through `stream()` over readers[0] or through
+    `stream_multi()` over all of them, on the CPU, in a thread: it must
+    return within 30 s (a hang fails the test instead of stalling the
+    suite), and what it raised is raised here.  on_output takes (stream,
+    pixels, timestamp) for both drivers."""
+    filt = lt.CompositeFilter(filters=(lt.IdentityFilter(),))
+    if driver == "stream":
+        def run():
+            tstream.stream(filt, readers[0], on_output=lambda px, ts: on_output(0, px, ts),
+                           device="cpu", **kw)
+    else:
+        def run():
+            tmulti.stream_multi(filt, readers, on_output=on_output, device="cpu", **kw)
+    raised = []
+
+    def guarded():
+        try:
+            run()
+        except BaseException as e:  # re-raised below, in the test's thread
+            raised.append(e)
+
+    thread = threading.Thread(target=guarded, daemon=True)
+    thread.start()
+    thread.join(timeout=30)
+    assert not thread.is_alive(), f"{driver} did not return within 30 s"
+    if raised:
+        raise raised[0]
+
+
+def _failing_reader(frames, at):
+    """`frames` as a reader that raises at frame `at`."""
+    for t, f in enumerate(frames):
+        if t == at:
+            raise RuntimeError("decode exploded")
+        yield f, t / 30.0
+
+
+def _readers(driver, faulty):
+    """The solo driver's one reader, `faulty`; or the multi driver's two, a
+    sound one and `faulty` (the last stream)."""
+    return [faulty] if driver == "stream" else [_reader(_clip_u8(2, n=6)), faulty]
+
+
+@pytest.mark.parametrize("driver", ["stream", "stream_multi"])
+def test_stream_reader_exception_surfaces(driver):
     frames = _clip_u8(3, n=6)
-
-    def bad_reader():
-        for t, f in enumerate(frames):
-            if t == 3:
-                raise RuntimeError("decode exploded")
-            yield f, t / 30.0
-
     with pytest.raises(RuntimeError, match="decode exploded"):
-        tstream.stream(lt.CompositeFilter(filters=(lt.IdentityFilter(),)), bad_reader(),
-                       on_output=lambda px, ts: None, device="cpu")
+        _drive(driver, _readers(driver, _failing_reader(frames, 3)), lambda i, px, ts: None)
 
 
-def test_stream_writer_abort_does_not_strand_reader():
-    """A failing writer aborts the pipeline; the reader, blocked on a full
-    2-deep queue of an endless source, unblocks and the call returns."""
+def test_stream_multi_reader_fails_before_first_frame():
+    """A reader that raises on its first `next` ends the multi-stream run
+    with its error, though its stream never gave the frame that shapes its
+    slot."""
+    frames = _clip_u8(3, n=6)
+    with pytest.raises(RuntimeError, match="decode exploded"):
+        _drive("stream_multi", _readers("stream_multi", _failing_reader(frames, 0)),
+               lambda i, px, ts: None)
+
+
+@pytest.mark.parametrize("driver", ["stream", "stream_multi"])
+def test_stream_writer_abort_does_not_strand_reader(driver):
+    """A failing writer aborts the pipeline; the readers, blocked on full
+    2-deep queues of endless sources, unblock and the call returns (with the
+    multi driver, the other stream's writer keeps going until the abort)."""
     f = _clip_u8(4, n=1)[0]
 
     def endless_reader():
         for t in itertools.count():
             yield f, t / 30.0
 
-    def bad_writer(px, ts):
-        raise IOError("encoder died")
+    readers = [endless_reader() for _ in range(1 if driver == "stream" else 2)]
+
+    def bad_writer(i, px, ts):
+        if i == len(readers) - 1:
+            raise IOError("encoder died")
 
     with pytest.raises(IOError, match="encoder died"):
-        tstream.stream(lt.CompositeFilter(filters=(lt.IdentityFilter(),)), endless_reader(),
-                       on_output=bad_writer, queue_depth=2, device="cpu")
+        _drive(driver, readers, bad_writer, queue_depth=2)
 
 
 def test_stream_latency_quantiles():

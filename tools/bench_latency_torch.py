@@ -91,7 +91,7 @@ def graph_step_ms(filt, frame_u8, device="cuda") -> float:
 
     from livevisionkit_tpu_torch.data.frame import Frame
     from livevisionkit_tpu_torch.filters.base import FrameSpec
-    from livevisionkit_tpu_torch.runtime.stream import _ingest
+    from livevisionkit_tpu_torch.runtime.pipeline import ingest
     from livevisionkit_tpu_torch.types import PixelFormat
     from livevisionkit_tpu_torch.utils.compiled import jit_step
 
@@ -100,7 +100,7 @@ def graph_step_ms(filt, frame_u8, device="cuda") -> float:
     live = torch.ones((), dtype=torch.bool, device=device)
 
     def full_step(state, raw, stamp):
-        frame = Frame(pixels=_ingest(raw), timestamp=stamp, valid=live, format=bgr).reformat(yuv)
+        frame = Frame(pixels=ingest(raw), timestamp=stamp, valid=live, format=bgr).reformat(yuv)
         state, out = filt.step(state, frame)
         out = out.reformat(bgr)
         return state, (out.pixels, out.timestamp, out.valid)

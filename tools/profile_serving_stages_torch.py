@@ -43,7 +43,7 @@ def bodies(n_streams: int = 8, size: tuple[int, int] = (1080, 1920), device="cud
 
     import livevisionkit_tpu_torch as lt
     from livevisionkit_tpu_torch.data.stream_buffer import StreamBuffer
-    from livevisionkit_tpu_torch.filters import stabilization as stab
+    from livevisionkit_tpu_torch.ops import color
     from livevisionkit_tpu_torch.parallel.streams import MultiStreamFilter, batched
     from livevisionkit_tpu_torch.vision import frame_tracker
 
@@ -84,8 +84,8 @@ def bodies(n_streams: int = 8, size: tuple[int, int] = (1080, 1920), device="cud
     yield f"tracker.track (S={n_streams})", track_body, tstate
 
     def round_trip(q, px, ts, v):
-        q = q.push({"pixels": stab._quantize_u8(px), "timestamp": ts, "valid": v})
-        return q, stab._dequantize_u8(q.oldest()["pixels"])
+        q = q.push({"pixels": color.to_u8(px), "timestamp": ts, "valid": v})
+        return q, color.from_u8(q.oldest()["pixels"])
 
     round_trip_v = batched(round_trip)
 
