@@ -91,8 +91,11 @@ def stream_multi(
 
     The call is one session of utils/profiling.py (kind "multi"), returned
     as `MultiStreamStats.session`: a `tick` span a tick (its `read_wait`,
-    then `assemble`, `upload`, `replay`, `download`, `drain_wait`, `fanout`)
-    inside `loop`, and `read` / `write` in the reader and writer threads.
+    then `assemble`, `upload`, `replay`, `download`, `drain_wait`, with
+    `fanout` wherever a tick's outputs are handed over, `read_wait`
+    included) inside `loop`, `read` / `write` in the reader and writer
+    threads, and the window's counters `window.outputs` and `window.early`
+    (runtime/pipeline.py).
     """
     device = torch.device(device)
     with profiling.session("multi") as sess:
@@ -164,17 +167,17 @@ def _run(stats, filt, readers, on_output, device, work_format, queue_depth, infl
     def gather():
         """The next tick's (frames, timestamps, live flags), one slot per
         stream, or None once every stream has ended or the pipeline stops."""
+        idle = None if window is None else lambda: window.poll(fanout)
         while not stop_event.is_set() and not all(eof):
             raws, tss, lives = [], [], []
             for i in range(n):
                 stalled = False
                 if eof[i]:
                     item = None
-                elif slow_stream_timeout is None or last_frame[i] is None:
-                    item = io.get(i)
-                else:  # timed: a stop shows at the next pass of the loop
+                else:  # a stream's first frame is always waited for
+                    timeout = None if last_frame[i] is None else slow_stream_timeout
                     try:
-                        item = io.in_qs[i].get(timeout=slow_stream_timeout)
+                        item = io.get(i, timeout=timeout, idle=idle)
                     except queue.Empty:
                         item, stalled = None, True
                 if stalled:

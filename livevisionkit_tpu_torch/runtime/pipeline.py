@@ -12,14 +12,16 @@ step:
   * the outputs come back by a non-blocking copy into pinned memory behind
     one CUDA event, on the stream that replays the graph, so the next
     replay, which overwrites the graph's outputs, is ordered after the copy;
-  * the window waits on the oldest pending event only once more than
-    `inflight` outputs are pending: that wait is the backpressure, and the
-    reason a ring slot's last copy has always passed by the time the slot
-    comes round again;
-  * a writer thread a sink encodes drained frames (the reference's output
-    thread).
+  * each output is handed over, oldest first, as soon as its copy has
+    completed: at each push, and while the loop waits for its next input,
+    which it then polls every `IDLE_POLL_S` and ends as soon as an input
+    arrives.  The window waits on the oldest pending event only once more
+    than `inflight` outputs are pending: that wait is the backpressure
+    alone (a ring slot's reuse waits on the slot's own event, `Window.host`);
+  * a writer thread a sink encodes handed-over frames (the reference's
+    output thread).
 
-Every put and every untimed get watches one stop event, so a
+Every put and every get watches one stop event, so a
 thread that fails stops the pipeline without stranding another, and its
 error is raised when the pipeline closes.  On the CPU the copies are plain
 and there is no event.
@@ -40,7 +42,12 @@ from livevisionkit_tpu_torch.data.frame import Frame
 from livevisionkit_tpu_torch.filters.base import FrameSpec, VideoFilter
 from livevisionkit_tpu_torch.ops.color import from_u8
 from livevisionkit_tpu_torch.types import PixelFormat
+from livevisionkit_tpu_torch.utils import profiling
 from livevisionkit_tpu_torch.utils.profiling import Session, trace_scope
+
+# How often a loop waiting for its next input, with outputs pending, asks
+# whether the oldest one's copy has completed (s).
+IDLE_POLL_S = 0.0002
 
 
 def ingest(bgr_hwc_u8: torch.Tensor) -> torch.Tensor:
@@ -107,16 +114,27 @@ class Threads:
                 continue
         return False
 
-    def get(self, i: int):
+    def get(self, i: int, timeout: float | None = None, idle: Callable[[], bool] | None = None):
         """Source i's next (frame, timestamp), None at its end or once the
-        pipeline stops.  Polls, doesn't block: after an abort a reader stops
+        pipeline stops; with `timeout`, `queue.Empty` after that many seconds
+        without one.  Polls, doesn't block: after an abort a reader stops
         feeding without an EOF (its puts give up), so a blocking get would
-        hang."""
+        hang.  While `idle` (a window's `poll`) reports outputs pending, the
+        polls are `IDLE_POLL_S` apart and `idle` runs between them, so an
+        output is handed over once its copy completes and an input that
+        arrives still ends the wait at once."""
+        deadline = None if timeout is None else time.perf_counter() + timeout
+        pending = idle is not None
         while not self.stop.is_set():
+            wait = IDLE_POLL_S if pending else 0.1
+            if deadline is not None:
+                wait = min(wait, deadline - time.perf_counter())
+                if wait <= 0:
+                    raise queue.Empty
             try:
-                return self.in_qs[i].get(timeout=0.1)
+                return self.in_qs[i].get(timeout=wait)
             except queue.Empty:
-                continue
+                pending = pending and idle()
         return None
 
     def _read(self, sess: Session, source, q: queue.Queue, max_frames: int | None) -> None:
@@ -226,7 +244,8 @@ class Window:
     def push(self, out: Sequence[torch.Tensor], deliver: Callable) -> None:
         """Start copying the step's outputs to the host (the `download`
         span), keep them pending, stamped with the time they were submitted,
-        and drain down to `inflight` pending."""
+        hand over those whose copies have completed, and wait down to
+        `inflight` pending."""
         with trace_scope("download"):
             if out[0].device.type != "cuda":
                 host, event = tuple(t.clone() for t in out), None
@@ -237,15 +256,37 @@ class Window:
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(out[0].device))
         self.pending.append((host, event, time.perf_counter()))
+        self.poll(deliver)
         self.drain(deliver, keep=self.inflight)
 
-    def drain(self, deliver: Callable, keep: int = 0) -> None:
+    def poll(self, deliver: Callable) -> bool:
         """Hand pending outputs, oldest first, to `deliver(host outputs,
-        submit time)` while more than `keep` are pending, each once its copy
-        has passed (`drain_wait`)."""
+        submit time)` while the oldest one's copy has completed (on the CPU
+        at once), so a later copy that completes first still waits its turn;
+        whether any output is still pending.  Counts `window.early`, the
+        outputs handed over while no more than `inflight` were pending,
+        which the wait of `drain` would have held."""
+        while self.pending:
+            event = self.pending[0][1]
+            if event is not None and not event.query():
+                return True
+            if len(self.pending) <= self.inflight:
+                profiling.count("window.early")
+            self._hand(deliver)
+        return False
+
+    def drain(self, deliver: Callable, keep: int = 0) -> None:
+        """Hand pending outputs, oldest first, to `deliver` while more than
+        `keep` are pending, each once its copy has completed (`drain_wait`)."""
         while len(self.pending) > keep:
-            host, event, t_submit = self.pending.popleft()
+            event = self.pending[0][1]
             if event is not None:
                 with trace_scope("drain_wait"):
                     event.synchronize()
-            deliver(host, t_submit)
+            self._hand(deliver)
+
+    def _hand(self, deliver: Callable) -> None:
+        """Hand the oldest pending output over (counter `window.outputs`)."""
+        host, _, t_submit = self.pending.popleft()
+        profiling.count("window.outputs")
+        deliver(host, t_submit)

@@ -43,10 +43,11 @@ class StreamStats:
     # Per-filter device-synced timings, only in profile mode (reference
     # VideoProcessor -v, VideoProcessor.cpp:291-356).
     filter_times: dict = field(default_factory=dict)
-    # Per-output submit -> drain latency samples (seconds): from the end of
-    # the frame's submission to its pixels being host-resident, i.e. the
-    # live pipeline latency INCLUDING the deliberate in-flight window.  The
-    # stabilizer's algorithmic delay (its delay queue) is not included.
+    # Per-output submit -> hand-over latency samples (seconds): from the end
+    # of the frame's submission to its pixels being host-resident and handed
+    # to the writer, which is as soon as their copy has completed (in-flight
+    # outputs wait only for older ones).  The stabilizer's algorithmic delay
+    # (its delay queue) is not included.
     latencies: list = field(default_factory=list)
 
     @property
@@ -103,8 +104,10 @@ def stream(
 
     The call is one session of utils/profiling.py (kind "stream"), returned
     as `StreamStats.session`: a `frame` span a frame (its `read_wait`, then
-    `upload`, `replay`, `download`, `drain_wait`, `deliver`) inside `loop`,
-    and `read` / `write` in the reader and writer threads.
+    `upload`, `replay`, `download`, `drain_wait`, with `deliver` wherever an
+    output is handed over, `read_wait` included) inside `loop`, `read` /
+    `write` in the reader and writer threads, and the window's counters
+    `window.outputs` and `window.early` (runtime/pipeline.py).
     """
     device = torch.device(device)
     with profiling.session("stream") as sess:
@@ -183,7 +186,7 @@ def _run(stats, filt, reader, on_output, work_format, queue_depth, inflight, max
                 frame_span = trace_scope("frame", stats.frames_in)
                 with frame_span:
                     with trace_scope("read_wait"):
-                        item = io.get(0)
+                        item = io.get(0, idle=None if window is None else lambda: window.poll(deliver))
                     if item is None:
                         frame_span.discard()
                         break

@@ -10,12 +10,14 @@ frame, so the warm-up frames lead the measured ones in the same call and
 only the last --frames outputs count (the JAX tool's measured pass reuses
 its warm-up's compile instead).  A pipeline row holds the quantiles
 against the live limit of (inflight + 1) frame periods at 60 fps, 66.7 ms
-for the default window of 3.  `stream()` drains an output once the
-window behind it is full, so from a paced reader the latency is about
---inflight frame periods; --inflight 0 waits for each output at once.  The `vs_minus_identity` row gives the
-stabilizer-minus-identity quantiles (the transfer floor cancelled), the
-per-frame compute they imply (the p50 difference over the pipeline
-depth), the time of the same per-frame program as a `jit_step` graph
+for the default window of 3.  `stream()` hands each output over as
+soon as its copy has completed, so from a paced reader the latency is the
+step, the download and the hand-over, well under a frame period;
+--inflight caps the outputs in flight and waits on the oldest only beyond
+it, which a reader faster than the step reaches.  The `vs_minus_identity`
+row gives the stabilizer-minus-identity quantiles (the transfer floor
+cancelled), the per-frame compute they imply (the p50 difference), the
+time of the same per-frame program as a `jit_step` graph
 (`graph_step_ms`: the pinned u8 upload, BGR -> YUV, the stabilizer's
 step, YUV -> BGR; CUDA events on the card, the host clock on the CPU;
 the JAX tool's scan-differenced step), the stabilizer's delay queue in
@@ -142,12 +144,11 @@ def latency(filt, size: tuple[int, int], frames: int = 120, fps: float = 60.0, w
                          warmup, frames, inflight, device)
     vs = run_pipeline(f"vs_{size[0]}p_latency", CompositeFilter((filt,)), ring, fps, warmup, frames,
                       inflight, device)
-    depth = inflight + 1  # the in-flight window and the frame being drained
     keys = ("p50_ms", "p95_ms", "p99_ms")
     delay = filt.settings.smoother.predictive_samples
     delta = {"config": "vs_minus_identity", "device": str(device), "size": vs["size"],
              "paced_fps": fps, "inflight": inflight, **{k: vs[k] - ident[k] for k in keys},
-             "per_frame_compute_ms_est": (vs["p50_ms"] - ident["p50_ms"]) / depth,
+             "per_frame_compute_ms_est": vs["p50_ms"] - ident["p50_ms"],
              "graph_step_ms": graph_step_ms(filt, ring[0], device),
              "delay_queue_frames": delay, "delay_queue_ms_at_60fps": delay * 1000.0 / 60.0,
              "reference_budget_ms": REFERENCE_BUDGET_MS}
