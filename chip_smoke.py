@@ -15,7 +15,9 @@ frame, and an empty kernel as the floor of every launch's time), RANSAC +
 IRLS (K7) at the flagship's 510 features and 256 hypotheses, solo and
 over 8 streams in one launch, against its plain version, the deblocker's
 kernels (K8: the 5 x 5 median alone at the 4K pooled 3x540x960, the
-reduce + blend pair at 3x2160x3840) against theirs, then
+reduce + blend pair at 3x2160x3840) against theirs, CAS (K9) at
+3x2160x3840 and over 8 streams at 1080p, bit-equal to its plain version
+(the batched launch also to 8 solo launches and at stream stride 0), then
 drives the paths over synthetic shaky 1080p clips rendered on the card:
 the flagship stabilizer (`livevisionkit_tpu_torch.flagship_filter`)
 alone; 8 streams of it in one batched step (`MultiStreamFilter`),
@@ -94,7 +96,7 @@ launches over every path, error and times, with its bound (the larger of
 its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, the H100
 SXM's published peaks, counted from this run's shapes and maps) and the
 time of one PyTorch call computing the same function where there is one
-(F.grid_sample for the bilinear warp; none computes EASU, LK or RCAS).
+(F.grid_sample for the bilinear warp; none computes EASU, LK, RCAS or CAS).
 Kernel times are taken behind a device spin, so the host's enqueue gap is
 not in them; the text lines give each
 also without the spin, as timed before.  With no CUDA device it exits
@@ -226,6 +228,15 @@ def _rcas_ops(nc: int, h: int, w: int) -> int:
     return (25 * nc + 6) * (h - 2) * (w - 2)
 
 
+def _cas_ops(nc: int, h: int, w: int) -> int:
+    """f32 operations of CAS (csrc/cas.cu), every pixel and channel: 18
+    min/max and 2 adds for the soft min and max, 7 for the amp (a
+    subtraction, a min, a max, a division, the clamp's two and the square
+    root) and 11 for the weight, the cross's sum, the blend, its division
+    and the clamp."""
+    return 36 * nc * h * w
+
+
 def _affine_map(size, scale: float, angle: float, dev) -> torch.Tensor:
     """(2, H, W) map taking output pixel u to scale * R(angle) (u - c) + c
     about the centre c: scale 2 is a 0.5x zoom-out."""
@@ -285,7 +296,7 @@ def _counters():
     K2's bilinear launches are counted apart too, and are also in its
     count; a `deblock` call is K8's two launches, the reduce and the
     blend)."""
-    from livevisionkit_tpu_torch.ops.cuda_kernels import deblock, easu_scale, lk, ransac, rcas, warp
+    from livevisionkit_tpu_torch.ops.cuda_kernels import cas, deblock, easu_scale, lk, ransac, rcas, warp
 
     return {"warp": (warp.warp, "launches"), "warp_batched": (warp.warp_batched, "launches"),
             "warp_batched_bilinear": (warp.warp_batched, "launches_bilinear"),
@@ -294,7 +305,8 @@ def _counters():
             "easu_scale_batched": (easu_scale.easu_scale_batched, "launches"),
             "rcas": (rcas.rcas, "launches"), "rcas_batched": (rcas.rcas_batched, "launches"),
             "ransac": (ransac.ransac_estimate, "launches"),
-            "median_blur": (deblock.median_blur, "launches"), "deblock": (deblock.deblock, "launches")}
+            "median_blur": (deblock.median_blur, "launches"), "deblock": (deblock.deblock, "launches"),
+            "cas": (cas.cas, "launches"), "cas_batched": (cas.cas_batched, "launches")}
 
 
 def _want(**launches) -> dict:
@@ -421,6 +433,7 @@ TRACE_GROUPS = {
     "K8 reduce": (r"deblock_reduce_kernel", ("deblock",)),
     "K8 blend": (r"deblock_blend_kernel", ("deblock",)),
     "K8 median": (r"median_kernel", ("median_blur",)),
+    "K9": (r"cas_kernel", ("cas", "cas_batched")),
 }
 
 
@@ -1115,6 +1128,69 @@ def check_rcas_x8(dev, rng) -> dict:
           f"(vmap) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {STREAMS} x solo) (f32, "
           f"median of {RUNS}); floor: torch.clone of the stack {clone_ms:.4f} ms", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "solo_ms": solo_ms, "clone_ms": clone_ms}
+
+
+def check_cas(dev, rng) -> dict:
+    """K9 against its plain version on the 4K chain's 3x2160x3840 f32
+    frame at sharpness 0.8, bit for bit; beside it a `torch.clone` of the
+    frame, which moves the same bytes.  No PyTorch call computes CAS
+    (library: none)."""
+    from livevisionkit_tpu_torch.ops import cas as cas_ops
+
+    img = rcas_input(dev, rng)
+    got = cas_ops.cas(img, 0.8)
+    want = cas_ops.cas_plain(img, 0.8)
+    assert torch.equal(got, want), f"K9 differs from plain by {float((got - want).abs().max())}"
+    moved = float((got - img).abs().max())
+    del got, want
+    assert moved > 1e-3, f"K9 changed no pixel by more than {moved}"
+    ms, gap_ms = _median_ms(lambda: cas_ops.cas(img, 0.8)), _median_ms(
+        lambda: cas_ops.cas(img, 0.8), spin=False)
+    plain_ms = _median_ms(lambda: cas_ops.cas_plain(img, 0.8))
+    clone_ms = _median_ms(img.clone)
+    bound_ms, bound_by = _bound(4 * 2 * img.numel(), _cas_ops(3, *OUT))
+    print(f"K9 cas 3x{OUT[0]}x{OUT[1]}: bit-equal to plain; kernel {ms:.4f} ms ({gap_ms:.4f} "
+          f"without the device spin), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.1f}% of it (f32, sharpness 0.8, median of {RUNS}); library: none; "
+          f"floor: torch.clone of the frame {clone_ms:.4f} ms", flush=True)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "clone_ms": clone_ms}
+
+
+def check_cas_x8(dev, rng) -> dict:
+    """K9's stream axis at the `vs + adb + cas` tick's shape: STREAMS
+    3x1080x1920 f32 frames in one launch, bit-equal to STREAMS solo
+    launches and to the plain version under vmap, also for one frame
+    shared at stream stride 0; beside it a `torch.clone` of the stack."""
+    from livevisionkit_tpu_torch.ops import cas as cas_ops
+    from livevisionkit_tpu_torch.ops.cuda_kernels import cas as k9
+
+    luma = torch.from_numpy(_texture(H, W, rng)).to(dev)
+    base = torch.stack([luma, 0.25 + 0.5 * luma.flip(0), 0.75 - 0.5 * luma.flip(1)])
+    imgs = _stream_stack(base).contiguous()
+    peak = cas_ops.cas_peak(0.8)
+    got = k9.cas_batched(imgs, peak)
+    solo = lambda: [k9.cas(imgs[s], peak) for s in range(STREAMS)]  # noqa: E731
+    assert all(torch.equal(got[s], o) for s, o in enumerate(solo())), "K9 x8 is not bit-equal to solo K9"
+    shared = k9.cas_batched(imgs[-1][None].expand(STREAMS, -1, -1, -1), peak)
+    one = k9.cas(imgs[-1], peak)
+    assert all(torch.equal(shared[s], one) for s in range(STREAMS)), "K9 x8 at stride 0 differs"
+    del shared, one
+    assert torch.equal(got, cas_ops.cas_batched_plain(imgs, 0.8)), "K9 x8 differs from plain"
+    del got
+    kernel = lambda: k9.cas_batched(imgs, peak)  # noqa: E731
+    ms, gap_ms = _median_ms(kernel), _median_ms(kernel, spin=False)
+    solo_ms = _median_ms(solo)
+    plain_ms = _median_ms(lambda: cas_ops.cas_batched_plain(imgs, 0.8))
+    clone_ms = _median_ms(imgs.clone)
+    bound_ms, bound_by = _bound(4 * 2 * imgs.numel(), STREAMS * _cas_ops(3, H, W))
+    print(f"K9 cas x{STREAMS}: {STREAMS}x3x{H}x{W} in one launch, bit-equal to {STREAMS} solo K9 "
+          f"(also at stream stride 0) and to plain; kernel {ms:.4f} ms ({gap_ms:.4f} without the "
+          f"device spin), {STREAMS} x solo K9 {solo_ms:.4f} ms, plain (vmap) {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it (f32, median of {RUNS}); "
+          f"library: none; floor: torch.clone of the stack {clone_ms:.4f} ms", flush=True)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "solo_ms": solo_ms, "clone_ms": clone_ms}
 
 
@@ -1854,7 +1930,8 @@ TOOL_LAUNCHES = {
     "bench": {"warp": 1, "lk_track": 1},
     # 10 stabilizer configs (the 4K chain's included), the scaler.
     # 1080p_deblock, 4k_deblock and the 4K chain: K8's deblocker.
-    "bench_matrix": {"warp": 10, "lk_track": 10, "easu_scale": 1, "rcas": 1, "deblock": 3},
+    # 4k_cas and the 4K chain: K9.
+    "bench_matrix": {"warp": 10, "lk_track": 10, "easu_scale": 1, "rcas": 1, "deblock": 3, "cas": 2},
     "profile_stages": {"warp": 2, "lk_track": 2},  # full step, track; warp.apply
     "profile_tracker": {"lk_track": 2},  # track, optical_flow.track (solo or batched)
     # median5@270p and full-fused: resample.median_blur, K8's median.
@@ -2254,7 +2331,8 @@ def run_full_chain(dev, rng, profile_dir: str | None) -> dict:
     _reset_launches()
     state, gpu_ms, wall_ms = _drive(filt, state, (frame(t) for t in range(n)), keep, n=n)
     launches = _launches()
-    assert launches == _want(warp=n, lk_track=n, deblock=n), f"full chain: kernel launches {launches}"
+    assert launches == _want(warp=n, lk_track=n, deblock=n, cas=n), (
+        f"full chain: kernel launches {launches}")
     valid = [bool(v) for v in valids]
     assert valid == [t >= delay for t in range(n)], f"full chain: valid flags {valid}"
     assert all(bool(f) for f in finite), "full chain: non-finite output pixels"
@@ -2281,7 +2359,7 @@ def run_full_chain(dev, rng, profile_dir: str | None) -> dict:
     smap = state[0].correction.sample_map(UHD).contiguous()
     del state
     graph = run_graph("full_chain", filt.step, jit_step(filt.step), lambda: filt.init(spec, device=dev),
-                      lambda t: (frame(t),), n, {"warp": 1, "lk_track": 1, "deblock": 1},
+                      lambda t: (frame(t),), n, {"warp": 1, "lk_track": 1, "deblock": 1, "cas": 1},
                       lambda st, out: [out.pixels, out.valid, out.timestamp, st[0].correction.offsets])
 
     img_u8 = clip[-1].contiguous()
@@ -2487,14 +2565,14 @@ def check_warp_c4(dev, rng) -> tuple[dict, dict]:
 def run_adb_cas_multistream(dev, poses, clips, profile_dir: str | None) -> dict:
     """STREAMS flagship streams through the JAX package's multi-chip dry
     run chain `vs + adb + cas` (__graft_entry__.py:94-128) for ADB_CAS_TICKS
-    ticks: one K2, one K3 and one K8 deblock call (the STREAMS streams'
-    deblockers in its two launches) a tick."""
+    ticks: one K2, one K3, one K8 deblock call (the STREAMS streams'
+    deblockers in its two launches) and one K9 launch a tick."""
     import livevisionkit_tpu_torch as lvk
 
     n = ADB_CAS_TICKS
     chain = lvk.CompositeFilter((lvk.flagship_filter(), lvk.DeblockingFilter(), lvk.CASFilter()))
     return run_streams("adb_cas_multistream", chain, dev, poses, clips, n,
-                       _want(warp_batched=n, lk_track=n, deblock=n), profile_dir)
+                       _want(warp_batched=n, lk_track=n, deblock=n, cas_batched=n), profile_dir)
 
 
 class _Lockstep:
@@ -2847,7 +2925,7 @@ def run_lvk_trace(dev, frames, tmp) -> dict:
     traced = _traced_groups([(0.0, 0.0, e.get("name", "")) for e in events if e.get("cat") == "kernel"])
     steps = TRACE_FRAMES + WARMUP_STEPS
     want = {"K1/K2": 2 * steps, "K3/K4": steps, "K5": 0, "K6": 0, "K7": steps,
-            "K8 reduce": steps, "K8 blend": steps, "K8 median": 0}
+            "K8 reduce": steps, "K8 blend": steps, "K8 median": 0, "K9": 0}
     assert traced == want, f"DeviceTrace: kernels {traced}, want {want}"
     print(f"DeviceTrace: {TRACE_FRAMES} frames, {len(events)} events ({size_mb:.1f} MiB), "
           f"{kernels} kernels ({traced}: replays and the warm-up step), {frame_spans} frame "
@@ -3032,7 +3110,7 @@ def run_process_clip(dev, clip) -> dict:
         torch.cuda.synchronize()
     traced = _traced_groups(_trace_events(prof)[0])
     want = {"K1/K2": k + WARMUP_STEPS, "K3/K4": k + WARMUP_STEPS, "K5": 0, "K6": 0,
-            "K7": k + WARMUP_STEPS, "K8 reduce": 0, "K8 blend": 0, "K8 median": 0}
+            "K7": k + WARMUP_STEPS, "K8 reduce": 0, "K8 blend": 0, "K8 median": 0, "K9": 0}
     assert traced == want, f"process_clip trace: kernels {traced}, want {want}"
     print(f"process_clip: {n} 1080p frames of the flagship filter, one graph replayed a frame, "
           f"bit-equal to the op-by-op frame loop, launches at the capture {launches} (the loop's "
@@ -3582,10 +3660,11 @@ def run_dryrun(dev) -> dict:
     one_card = len(set(devices)) == 1
     # One graph a group, of the flagship mesh (its rows share the card: one
     # group) and of the chain, and K1 once per tile of the halo remap; the
-    # chain's deblocker (K8) once a step of its graph's group.
+    # chain's deblocker (K8) and CAS (K9, batched) once a step of its graph's group.
     per = WARMUP_STEPS + 1
     groups = 2 if one_card else 3
-    want = _want(warp=N_TILES, warp_batched=per * groups, lk_track=per * groups, deblock=per)
+    want = _want(warp=N_TILES, warp_batched=per * groups, lk_track=per * groups, deblock=per,
+                 cas_batched=per)
     assert launches == want, f"dryrun: launches {launches}, want {want}"
     mesh, px = rep["mesh"], rep["frames"]
     n_streams = px.shape[0]
@@ -3709,6 +3788,8 @@ def main() -> int:
     rcas_b_rep = check_rcas_x8(dev, rng)
     ransac_rep = check_ransac(dev, np.random.default_rng(3))
     deblock_rep = check_deblock(dev, np.random.default_rng(4))
+    cas_rep = check_cas(dev, np.random.default_rng(5))
+    cas_b_rep = check_cas_x8(dev, np.random.default_rng(6))
     poses, clips = _shaky_clips_u8(dev, rng)
     # The solo step and the 8-stream tick alternate, since the host's pace
     # wanders between phases of one process.
@@ -3744,8 +3825,8 @@ def main() -> int:
     check_sync_capture(dev)
 
     def entry(name, source, replaces, launches, rep, library_ms=None):
-        # K7 and K8 replace no TPU kernel: XLA fuses the JAX package's
-        # RANSAC and its deblocker.
+        # K7, K8 and K9 replace no TPU kernel: XLA fuses the JAX package's
+        # RANSAC, its deblocker and its CAS.
         return {"name": name, "route": "cuda", "source": f"livevisionkit_tpu_torch/csrc/{source}",
                 "replaces": f"livevisionkit_tpu/ops/tpu_kernels/{replaces}" if replaces else None,
                 "launches": launches,
@@ -3820,6 +3901,12 @@ def main() -> int:
               launched("deblock", *paths) + bt["launches"]["deblock"]
               + md["dryrun"]["launches"]["deblock"], deblock_rep["deblock"],
               library_ms=deblock_rep["deblock"]["library_ms"]),
+        # K9 replaces no TPU kernel (XLA fuses the JAX package's CAS): solo
+        # in the 4K chain and the bench matrix's 4k_cas and 4K chain; over
+        # STREAMS streams in the vs + adb + cas tick and the dry run's chain.
+        entry("cas", "cas.cu", None, launched("cas", *paths) + bt["launches"]["cas"], cas_rep),
+        entry("cas_x8", "cas.cu", None,
+              launched("cas_batched", *paths) + md["dryrun"]["launches"]["cas_batched"], cas_b_rep),
         # K1 once per tile of remap_sharded: the dry run's 4K halo remap.
         entry("warp_tiled", "warp.cu", "warp.py:312", md["dryrun"]["launches"]["warp"],
               md["tiled"]["easu"]),
@@ -3864,6 +3951,7 @@ def main() -> int:
           f" | K7 {ransac_rep['solo']['ms']:.4f} ms, x{STREAMS} {ransac_rep['x8']['ms']:.4f} ms"
           f" | K8 median {deblock_rep['median']['ms']:.4f} ms, deblock 4K "
           f"{deblock_rep['deblock']['ms']:.4f} ms"
+          f" | K9 cas 4K {cas_rep['ms']:.4f} ms, x{STREAMS} 1080p {cas_b_rep['ms']:.4f} ms"
           f" | 4K full chain {fc['gpu_ms']:.4f} / {fc['wall_ms']:.4f}"
           f" | {STREAMS}-stream vs+adb+cas tick {adb['gpu_ms']:.4f} / {adb['wall_ms']:.4f}"
           f" | deblock 1080p {alone['deblock_1080p']['ms']:.4f} ms, 4K {alone['deblock_4k']['ms']:.4f}"

@@ -158,6 +158,7 @@ _ENTRY_POINTS = {
     "lvk_easu_scale_batched": [_p, _p, _i, _ll] + _SCALE_ARGS,
     "lvk_rcas": [_p, _p, _i, _i, _i, _f, _p],
     "lvk_rcas_batched": [_p, _p, _i, _ll, _i, _i, _i, _f, _p],
+    "lvk_cas_batched": [_p, _p, _i, _ll, _i, _i, _i, _f, _p],
     "lvk_ransac": [_p, _ll, _p, _ll, _p, _ll, _p, _ll, _p, _ll, _i, _i, _i, _f, _i, _i,
                    _p, _p, _p, _p, _p, _p],
     "lvk_median_blur": [_p, _p, _i, _i, _i, _i, _p],
@@ -177,7 +178,7 @@ def library(csrc: Path = CSRC, out_dir: Path = BUILD_DIR) -> ctypes.CDLL:
     `lvk_lk_track` took no counter and `lvk_lk_track_counted` was absent;
     before K5 and K6 had a stream axis, `lvk_easu_scale_batched` and
     `lvk_rcas_batched` were absent; before K7, `lvk_ransac`; before K8,
-    `lvk_median_blur` and `lvk_deblock`)."""
+    `lvk_median_blur` and `lvk_deblock`; before K9, `lvk_cas_batched`)."""
     lib = ctypes.CDLL(str(build(csrc=csrc, out_dir=out_dir)))
     for name, args in _ENTRY_POINTS.items():
         fn = getattr(lib, name, None)

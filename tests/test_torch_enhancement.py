@@ -375,6 +375,54 @@ def test_cas_filter_matches_jax():
     assert np.array_equal(ot.alpha.numpy(), alpha)
 
 
+@pytest.mark.parametrize("shape", [(3, 24, 40), (24, 40), (4, 3, 7), (1, 1, 5), (2, 1, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cas_op_on_cpu_is_plain(shape):
+    """The custom op ``lvk::cas`` on a CPU tensor is `cas_plain`, bit for
+    bit, at sharpness 0, 0.8 and 1 (rows and columns of 1 included: the
+    edge-replicated neighbourhood is the pixel itself there)."""
+    img = torch.from_numpy(np.random.default_rng(11).uniform(size=shape).astype(np.float32))
+    for sharpness in (0.0, 0.8, 1.0):
+        assert torch.equal(tcas.cas(img, sharpness), tcas.cas_plain(img, sharpness))
+
+
+def _cas_streams(s=4, c=3, h=12, w=20):
+    return torch.from_numpy(np.random.default_rng(12).uniform(size=(s, c, h, w)).astype(np.float32))
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_cas_vmap_one_batched_call(monkeypatch, axis):
+    """torch.func.vmap of ops/cas.cas over streams, the stream axis at 0 or
+    at 1, enters the batched rule ONCE with the streams first, and equals
+    per-stream calls bit for bit."""
+    imgs = _cas_streams()
+    calls = []
+    orig = tcas.cas_batched_plain
+
+    def spy(x, *args):
+        calls.append(tuple(x.shape))
+        return orig(x, *args)
+
+    monkeypatch.setattr(tcas, "cas_batched_plain", spy)
+    moved = imgs.movedim(0, axis).contiguous()
+    got = torch.func.vmap(lambda im: tcas.cas(im, 0.7), in_dims=axis)(moved)
+    assert calls == [tuple(imgs.shape)]
+    assert torch.equal(got, torch.stack([tcas.cas(im, 0.7) for im in imgs]))
+
+
+def test_cas_vmap_unbatched_operand():
+    """A frame every stream shares: through vmap beside a batched operand
+    (the frame unbatched, its gain per stream), and through
+    ``lvk::cas_batched`` at stream stride 0; both equal the solo calls bit
+    for bit."""
+    img = _cas_streams(s=1)[0]
+    gains = torch.tensor([1.0, 0.5, 0.25], dtype=torch.float32)
+    got = torch.func.vmap(lambda im, g: tcas.cas(im * g, 0.8), in_dims=(None, 0))(img, gains)
+    assert torch.equal(got, torch.stack([tcas.cas(img * g, 0.8) for g in gains]))
+    shared = torch.ops.lvk.cas_batched(img[None].expand(3, -1, -1, -1), 0.8)
+    assert all(torch.equal(shared[s], tcas.cas(img, 0.8)) for s in range(3))
+
+
 # ------------------------------------------------------------ conversion
 
 

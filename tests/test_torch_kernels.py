@@ -18,9 +18,11 @@ import torch
 
 from livevisionkit_tpu_torch.config import FeatureDetectorSettings, OpticalFlowSettings
 from livevisionkit_tpu_torch.models.homography import Homography
+from livevisionkit_tpu_torch.ops import cas as cas_ops
 from livevisionkit_tpu_torch.ops import easu as easu_ops
 from livevisionkit_tpu_torch.ops import rcas as rcas_ops
 from livevisionkit_tpu_torch.ops import remap as remap_ops
+from livevisionkit_tpu_torch.ops.cuda_kernels import cas as cas_kernel
 from livevisionkit_tpu_torch.ops.cuda_kernels import easu_scale as easu_scale_kernel
 from livevisionkit_tpu_torch.ops.cuda_kernels import lk as lk_kernel
 from livevisionkit_tpu_torch.ops.cuda_kernels import rcas as rcas_kernel
@@ -90,6 +92,22 @@ def test_batched_scale_wrappers_reject_cpu_tensors():
         easu_scale_kernel.easu_scale_batched(imgs.half(), (16, 16), plan)
     with pytest.raises(TypeError, match="f32"):
         rcas_kernel.rcas_batched(imgs.half())
+
+
+def test_cas_wrappers_reject_cpu_tensors():
+    """K9's wrappers raise on CPU tensors, solo and stacked, and on other
+    dtypes, instead of taking the plain version."""
+    img = torch.zeros((3, 8, 8))
+    peak = cas_ops.cas_peak(0.8)
+    with pytest.raises(ValueError, match="CUDA"):
+        cas_kernel.cas(img, peak)
+    with pytest.raises(ValueError, match="CUDA"):
+        cas_kernel.cas_batched(img[None].expand(2, -1, -1, -1), peak)
+    for dtype in (torch.uint8, torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="f32"):
+            cas_kernel.cas(img.to(dtype), peak)
+        with pytest.raises(TypeError, match="f32"):
+            cas_kernel.cas_batched(img[None].to(dtype), peak)
 
 
 @pytest.mark.cuda
@@ -767,6 +785,87 @@ def test_rcas_batched_shared_frame(cuda):
     solo = rcas_kernel.rcas(img, 0.8)
     torch.cuda.synchronize()
     assert all(torch.equal(got[s], solo) for s in range(8))
+
+
+# (C, H, W): the 4K chain's frame and 1080p (16-byte rows), 4 channels;
+# widths 67, 1 and 2 (the scalar row path); 1, 2 and 3 rows (a band's
+# edge rows replicated from one row); 1 channel.
+CAS_SHAPES = [(3, 2160, 3840), (3, 1080, 1920), (4, 64, 96), (3, 41, 67), (3, 41, 1), (3, 41, 2),
+              (3, 1, 64), (3, 2, 67), (3, 3, 40), (1, 45, 97)]
+
+
+def _cas_image(dev, shape, seed=13):
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(0.0, 1.0, size=shape).astype(np.float32)
+    img[..., shape[-2] // 4: shape[-2] // 2, shape[-1] // 3: 2 * shape[-1] // 3] = 0.95
+    return torch.from_numpy(img).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CAS_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cas_kernel_matches_plain(cuda, shape):
+    """K9 bit-equal to cas_plain on the card, through the dispatch of
+    ops/cas.cas (one launch a call), at sharpness 0, 0.8 and 1, for (C, H,
+    W) and (H, W); the same frame at a 4-byte offset from a 16-byte
+    boundary (the scalar row path) bit-equal to the aligned one."""
+    img = _cas_image(cuda, shape)
+    for sharpness in (0.0, 0.8, 1.0):
+        before = cas_kernel.cas.launches
+        got = cas_ops.cas(img, sharpness)
+        assert cas_kernel.cas.launches == before + 1
+        want = cas_ops.cas_plain(img, sharpness)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), float((got - want).abs().max())
+    assert torch.equal(cas_ops.cas(img[0], 0.8), cas_ops.cas_plain(img[0], 0.8))
+    shifted = torch.empty(img.numel() + 1, device=cuda)[1:].view(shape)
+    shifted.copy_(img)
+    peak = cas_ops.cas_peak(0.8)
+    assert torch.equal(cas_kernel.cas(shifted, peak), cas_kernel.cas(img, peak))
+
+
+@pytest.mark.cuda
+def test_cas_kernel_non_contiguous_view(cuda):
+    """ops/cas.cas on a non-contiguous view (a tile of a wider frame, and a
+    transposed frame) launches K9 on its contiguous copy: bit-equal to
+    cas_plain of the view."""
+    img = _cas_image(cuda, (3, 96, 160))
+    for view in (img[:, 10:70, 32:132], img.transpose(1, 2)):
+        assert not view.is_contiguous()
+        got = cas_ops.cas(view, 0.8)
+        assert torch.equal(got, cas_ops.cas_plain(view, 0.8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 3, 1080, 1920), (8, 3, 41, 67), (3, 4, 37, 64), (2, 45, 97)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cas_batched_matches_solo(cuda, shape):
+    """K9's stream axis: S frames in one launch bit-equal to S solo
+    launches and to cas_plain under vmap, through torch.func.vmap of
+    ops/cas.cas (one batched launch, no solo launch); one frame broadcast
+    over the streams at stream stride 0 bit-equal to its solo launch."""
+    imgs = _cas_image(cuda, shape)
+    peak = cas_ops.cas_peak(0.8)
+    before, solo_before = cas_kernel.cas_batched.launches, cas_kernel.cas.launches
+    got = torch.func.vmap(lambda im: cas_ops.cas(im, 0.8))(imgs)
+    assert cas_kernel.cas_batched.launches == before + 1
+    assert cas_kernel.cas.launches == solo_before
+    solo = torch.stack([cas_kernel.cas(imgs[s], peak) for s in range(shape[0])])
+    want = cas_ops.cas_batched_plain(imgs, 0.8)
+    shared = cas_kernel.cas_batched(imgs[-1][None].expand(shape[0], *shape[1:]), peak)
+    torch.cuda.synchronize()
+    assert torch.equal(got, solo)
+    assert torch.equal(got, want)
+    assert all(torch.equal(shared[s], solo[-1]) for s in range(shape[0]))
+
+
+@pytest.mark.cuda
+def test_cas_kernel_rejects_other_dtypes(cuda):
+    """ops/cas.cas on a CUDA tensor that is not f32 raises: no fallback to
+    the plain version."""
+    img = _cas_image(cuda, (3, 16, 24))
+    for dtype in (torch.float16, torch.bfloat16, torch.float64, torch.uint8):
+        with pytest.raises(TypeError, match="f32"):
+            cas_ops.cas(img.to(dtype), 0.8)
 
 
 @pytest.mark.cuda
